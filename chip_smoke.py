@@ -1,0 +1,536 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port of the NB-tree device tier on one NVIDIA card.
+
+Run from the repository root (needs one CUDA card, the CUDA toolkit and no
+network)::
+
+    python3 chip_smoke.py
+
+1. Builds the hand-written kernels (``src/repro_torch/kernels/csrc``) and
+   holds every kernel of the main path against its plain PyTorch version on
+   the card, bit for bit, at the main path's shapes and on the edge cases
+   of the kernel tests; times each (CUDA events), its plain version and,
+   where one PyTorch call computes the same function, that call.
+2. Drives the main path through the engine a user calls:
+   ``TorchNBTreeEngine(f=4, sigma=4096)`` on ``cuda``; a YCSB load phase of
+   ``preload = 2^24`` keys over ``key_space = 2^26``, the paper's
+   ``insert-heavy`` mix (2^20 ops, batches of 4096), YCSB workload E's short
+   scans (``ycsb-e``, zipfian, ~400-key spans, 2^14 ops, batches of 1024),
+   then a ``drain``.  Kernel launch counters are zeroed just before and read
+   just after; every kernel must have launched.
+3. Holds every QUERY and RANGE answer and the final live table against a
+   numpy last-writer-wins oracle of the same stream.
+
+Prints a ``kernels`` JSON line, the card's name and power limit, and, last,
+``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+PEAK_BYTES_S = 3.35e12       # H100 SXM HBM3, NVIDIA data sheet
+PEAK_OPS_S = 67e12           # H100 SXM non-tensor fp32 rate, used for int ops
+KEY_MAX = 0xFFFFFFFF
+RUN_CAP, NW, H = 21504, 6784, 3      # f=4, sigma=4096 node-row shape
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def call_ms(fn, reps: int) -> float:
+    """Mean time per call of ``fn`` as a caller sees it: CUDA events around
+    ``reps`` back-to-back calls, so host launch overhead counts too."""
+    fn()
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn``: ``reps`` calls captured in one CUDA graph
+    and replayed between CUDA events, so no host time sits between them."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    graph.replay()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def max_abs_err(got, want) -> int:
+    """Largest elementwise difference of two output tuples; raises on any
+    shape or dtype mismatch."""
+    err = 0
+    for g, w in zip(got, want, strict=True):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"output {tuple(g.shape)}/{g.dtype} vs "
+                                 f"plain {tuple(w.shape)}/{w.dtype}")
+        if g.numel():
+            err = max(err, int((g.long() - w.long()).abs().max()))
+    return err
+
+
+def assert_exact(name, cuda_fn, plain_fn, *args, **kw):
+    got, want = cuda_fn(*args, **kw), plain_fn(*args, **kw)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    if err:
+        raise AssertionError(f"{name}: kernel differs from its plain version "
+                             f"(max abs err {err})")
+    return err
+
+
+def sorted_rows(g, R, n, hi, dev):
+    return torch.sort(torch.randint(0, hi, (R, n), generator=g, device=dev),
+                      dim=1).values
+
+
+def table_rows(g, R, dev):
+    """A node table: sorted keys (duplicates included) up to each row's
+    count, KEY_MAX after it with stale values; counts 0 .. RUN_CAP."""
+    keys = sorted_rows(g, R, RUN_CAP, 2**31, dev)
+    keys[:, 1::7] = keys[:, 0::7][:, : keys[:, 1::7].shape[1]]   # duplicates
+    keys = torch.sort(keys, dim=1).values
+    counts = torch.randint(0, RUN_CAP + 1, (R,), generator=g, device=dev,
+                           dtype=torch.int32)
+    counts[:4] = torch.tensor([0, 1, RUN_CAP, RUN_CAP - 1], dtype=torch.int32)
+    dead = torch.arange(RUN_CAP, device=dev)[None, :] >= counts[:, None]
+    keys = torch.where(dead, KEY_MAX, keys)
+    vals = torch.randint(0, 2**31 - 1, (R, RUN_CAP), generator=g, device=dev,
+                         dtype=torch.int32)
+    return keys, vals, counts
+
+
+def search_len(cnt):
+    """Keys a lower-bound search over cnt keys reads."""
+    return torch.ceil(torch.log2(cnt.double() + 1)) + 1
+
+
+# ------------------------------------------------------------------ phase 1
+def phase_kernels(dev) -> dict:
+    from repro_torch.kernels import bloom_filter as bf
+    from repro_torch.kernels import merge_sorted as ms
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import range_scan as rs
+    from repro_torch.kernels import sorted_search as ss
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    rows = {}
+
+    def record(name, source, replaces, err, cuda_fn, plain_fn, lib_fn,
+               nbytes, nops, reps=20):
+        ms_k = device_ms(cuda_fn, reps)
+        ms_p = device_ms(plain_fn, reps)
+        ms_l = device_ms(lib_fn, reps) if lib_fn else None
+        ms_call = call_ms(cuda_fn, reps)
+        t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, nops / PEAK_OPS_S * 1e3
+        rows[name] = {"name": name, "route": "cuda",
+                      "source": f"src/repro_torch/kernels/csrc/{source}",
+                      "replaces": replaces, "launches": 0,
+                      "max_abs_err": err, "ms": ms_k, "plain_ms": ms_p,
+                      "bound_ms": max(t_bytes, t_ops),
+                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                      "library_ms": ms_l}
+        log(f"  {name}: exact (max abs err {err}); kernel {ms_k:.4f} ms "
+            f"(per call from Python {ms_call:.4f} ms), plain {ms_p:.4f} ms, library "
+            f"{'n/a' if ms_l is None else f'{ms_l:.4f} ms'}, bound "
+            f"{rows[name]['bound_ms']:.4f} ms ({rows[name]['bound_by']})")
+
+    # ---- merge: flush fan-out (4 x (4096 + 21504)) and root merge --------
+    R, n = 4, 4096
+    ak = sorted_rows(g, R, n, 2**20, dev)                  # many duplicates
+    av = torch.randint(0, 2**31 - 1, (R, n), generator=g, device=dev,
+                       dtype=torch.int32)
+    bk, bv, _ = table_rows(g, R, dev)
+    bk[1, : n] = ak[1]                                     # shared keys: a first
+    bk = torch.sort(bk, dim=1).values
+    ak[3] = KEY_MAX                                        # empty run identity
+    err = assert_exact("merge_sorted_batch", ms.merge_sorted_batch_cuda,
+                       ms.merge_sorted_plain, ak, av, bk, bv)
+    tk, _ = ms.merge_sorted_batch_cuda(ak, av, bk, bv)
+    assert torch.equal(tk[3, :RUN_CAP], bk[3]), "empty a-run must leave b as is"
+    out_n = R * (n + RUN_CAP)
+    steps = float(np.log2(RUN_CAP)) + 1
+    cat_k = torch.cat([ak, bk], dim=1)
+    record("merge_sorted_batch", "merge_sorted.cu",
+           "src/repro/kernels/merge_sorted.py:177", err,
+           lambda: ms.merge_sorted_batch_cuda(ak, av, bk, bv),
+           lambda: ms.merge_sorted_plain(ak, av, bk, bv),
+           lambda: torch.sort(cat_k, dim=1, stable=True),
+           nbytes=12 * (R * n + R * RUN_CAP + out_n), nops=out_n * steps * 6)
+    a1, v1 = ak[0].contiguous(), av[0].contiguous()
+    b1, w1 = bk[2].contiguous(), bv[2].contiguous()
+    err = assert_exact("merge_sorted", ms.merge_sorted_cuda,
+                       ms.merge_sorted_plain, a1, v1, b1, w1)
+    edge = [[torch.tensor(x, dtype=torch.int64 if i % 2 == 0 else torch.int32,
+                          device=dev) for i, x in enumerate(case)]
+            for case in (([5, 10, 20], [1, 2, 3], [10, 20, 30], [-1, -2, -3]),
+                         ([7] * 5, [1] * 5, [7] * 3, [2] * 3),
+                         ([KEY_MAX] * 3, [0] * 3, [1, 2, KEY_MAX], [4, 5, 6]))]
+    for t in edge:               # tie-break, one-key runs, empty a-run
+        err = max(err, assert_exact("merge_sorted edge", ms.merge_sorted_cuda,
+                                    ms.merge_sorted_plain, *t))
+    _, tv = ms.merge_sorted_cuda(*edge[0])
+    assert tv[:6].tolist() == [1, 2, -1, 3, -2, -3], "a-first tie-break"
+    cat1 = torch.cat([a1, b1])
+    record("merge_sorted", "merge_sorted.cu",
+           "src/repro/kernels/merge_sorted.py:122", err,
+           lambda: ms.merge_sorted_cuda(a1, v1, b1, w1),
+           lambda: ms.merge_sorted_plain(a1, v1, b1, w1),
+           lambda: torch.sort(cat1, stable=True),
+           nbytes=12 * 2 * (n + RUN_CAP), nops=(n + RUN_CAP) * steps * 6)
+    del ak, av, bk, bv, cat_k
+
+    # ---- descent: 4096-row table, 4096 queries ---------------------------
+    T = 4096
+    tkeys, tvals, tcounts = table_rows(g, T, dev)
+    bloom = torch.empty((T, NW), dtype=torch.int64, device=dev)
+    for i in range(0, T, 128):
+        bloom[i:i + 128] = ops.bloom_build(tkeys[i:i + 128], NW * 32, H)
+    bloom[5] = 0                                           # empty filter
+    rows_q = torch.randperm(T, generator=g, device=dev).to(torch.int32)
+    cnt_q = tcounts[rows_q.long()]
+    pick = torch.randint(0, RUN_CAP, (T,), generator=g, device=dev)
+    q = tkeys[rows_q.long(), torch.minimum(pick, (cnt_q.long() - 1).clamp(min=0))]
+    miss = torch.rand(T, generator=g, device=dev) < 0.4
+    q = torch.where(miss, torch.randint(0, 2**32 - 1, (T,), generator=g,
+                                        device=dev), q)
+    q[:3] = KEY_MAX                                         # KEY_MAX queries
+    err = assert_exact("sorted_search_rows", ss.sorted_search_rows_cuda,
+                       ss.sorted_search_rows_plain, tkeys, tvals, rows_q,
+                       cnt_q, q)
+    found, _, _ = ss.sorted_search_rows_cuda(tkeys, tvals, rows_q, cnt_q, q)
+    assert not found[:3].any(), "KEY_MAX queries never match"
+    q_by_row = torch.empty_like(q)
+    q_by_row[rows_q.long()] = q
+    q_by_row = q_by_row.clamp(max=KEY_MAX - 1)[:, None].contiguous()
+    reads = search_len(cnt_q).sum().item()
+    record("sorted_search_rows", "sorted_search.cu",
+           "src/repro/kernels/sorted_search.py:83", err,
+           lambda: ss.sorted_search_rows_cuda(tkeys, tvals, rows_q, cnt_q, q),
+           lambda: ss.sorted_search_rows_plain(tkeys, tvals, rows_q, cnt_q, q),
+           lambda: torch.searchsorted(tkeys, q_by_row),
+           nbytes=8 * reads + T * (4 + 8 + 4 + 4 + 1 + 4 + 4),
+           nops=reads * 6)
+
+    err = assert_exact("bloom_probe_rows", bf.bloom_probe_rows_cuda,
+                       bf.bloom_probe_rows_plain, bloom, rows_q, q,
+                       nbits=NW * 32, h=H)
+    record("bloom_probe_rows", "bloom_filter.cu",
+           "src/repro/kernels/bloom_filter.py:64", err,
+           lambda: bf.bloom_probe_rows_cuda(bloom, rows_q, q, nbits=NW * 32, h=H),
+           lambda: bf.bloom_probe_rows_plain(bloom, rows_q, q, nbits=NW * 32, h=H),
+           None, nbytes=T * (H * 8 + 8 + 4 + 1), nops=T * H * 12)
+
+    B, M, cap = 1024, 8, 128
+    nodes = torch.randint(0, T, (B, M), generator=g, device=dev,
+                          dtype=torch.int32)
+    ncnt = tcounts[nodes.long()]
+    lo = tkeys[nodes[:, 0].long(), (ncnt[:, 0].long() // 2)].clamp(max=2**31)
+    span = torch.randint(0, 2**23, (B,), generator=g, device=dev)
+    hi = (lo + span).clamp(max=KEY_MAX - 1)
+    lo[:8] = lo[:8].clamp(min=1)
+    hi[:8] = lo[:8] - 1                                     # inverted: empty
+    lo[8:16] = tkeys[nodes[8:16, 0].long(), 0]              # boundary dups
+    hi[8:16] = lo[8:16]
+    hi[16:24] = KEY_MAX - 1                                 # truncation
+    lo[16:24] = 0
+    err = assert_exact("range_scan_rows", rs.range_scan_rows_cuda,
+                       rs.range_scan_rows_plain, tkeys, tvals, nodes, ncnt,
+                       lo.contiguous(), hi.contiguous(), cap)
+    _, _, n_match = rs.range_scan_rows_cuda(tkeys, tvals, nodes, ncnt, lo, hi, cap)
+    assert (n_match[:8] == 0).all() and (n_match[16:24] > cap).any()
+    gathered = n_match.clamp(max=cap).sum().item()
+    reads = 2 * search_len(ncnt).sum().item()
+    record("range_scan_rows", "range_scan.cu",
+           "src/repro/kernels/range_scan.py:116", err,
+           lambda: rs.range_scan_rows_cuda(tkeys, tvals, nodes, ncnt, lo, hi, cap),
+           lambda: rs.range_scan_rows_plain(tkeys, tvals, nodes, ncnt, lo, hi, cap),
+           None, nbytes=8 * reads + 12 * gathered + B * M * (4 + 4 + 4)
+           + B * 16 + B * M * cap * 12, nops=reads * 6 + B * M * cap * 3)
+
+    # ---- the one-run entry points (Pallas contracts; off the main path) --
+    run, rv, rc = tkeys[2], tvals[2], int(tcounts[2])
+    assert_exact("sorted_search", ss.sorted_search_cuda, ss.sorted_search_plain,
+                 run, rv, q)
+    assert_exact("bloom_probe", bf.bloom_probe_cuda, bf.bloom_probe_plain,
+                 bloom[7].contiguous(), q, nbits=NW * 32, h=H)
+    assert_exact("range_scan", rs.range_scan_cuda, rs.range_scan_plain,
+                 run, rv, lo.contiguous(), hi.contiguous(), max_results=cap)
+    log(f"  one-run forms sorted_search, bloom_probe, range_scan: exact "
+        f"(run of {rc} keys, {T} queries)")
+    del tkeys, tvals, bloom
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ------------------------------------------------------------------ phase 2
+class Oracle:
+    """Last-writer-wins key/value map of the stream, as sorted numpy arrays
+    (independent of the port: plain numpy search and insertion)."""
+
+    def __init__(self, keys, vals):
+        order = np.argsort(keys)
+        self.keys = np.asarray(keys, np.uint64)[order]
+        self.vals = np.asarray(vals, np.int64)[order]
+
+    def write(self, keys, vals):
+        uk, first = np.unique(keys[::-1], return_index=True)   # last write wins
+        uv = vals[::-1][first]
+        pos = np.searchsorted(self.keys, uk)
+        hit = pos < len(self.keys)
+        hit[hit] = self.keys[pos[hit]] == uk[hit]
+        self.vals[pos[hit]] = uv[hit]
+        self.keys = np.insert(self.keys, pos[~hit], uk[~hit])
+        self.vals = np.insert(self.vals, pos[~hit], uv[~hit])
+
+    def delete(self, keys):
+        pos = np.searchsorted(self.keys, keys)
+        ok = pos < len(self.keys)
+        ok[ok] = self.keys[pos[ok]] == keys[ok]
+        keep = np.ones(len(self.keys), bool)
+        keep[pos[ok]] = False
+        self.keys, self.vals = self.keys[keep], self.vals[keep]
+
+    def check(self, batch, res, OpKind):
+        """Apply a kind-grouped batch; assert the engine's visible answers."""
+        kinds = batch.kinds
+        assert np.all(np.diff(kinds) >= 0), "batch must be grouped by kind"
+        m = kinds == int(OpKind.INSERT)
+        self.write(batch.keys[m], batch.vals[m])
+        m = kinds == int(OpKind.DELETE)
+        self.delete(batch.keys[m])
+        m = np.flatnonzero(kinds == int(OpKind.QUERY))
+        if len(m):
+            q = batch.keys[m]
+            pos = np.searchsorted(self.keys, q).clip(max=len(self.keys) - 1)
+            hit = self.keys[pos] == q
+            assert np.array_equal(res.found[m], hit), "QUERY presence"
+            assert np.array_equal(res.values[m], np.where(hit, self.vals[pos], -1)), \
+                "QUERY value"
+        m = np.flatnonzero(kinds == int(OpKind.RANGE))
+        if len(m):
+            a = np.searchsorted(self.keys, batch.keys[m], "left")
+            b = np.searchsorted(self.keys, batch.his[m], "right")
+            assert not res.range_truncated[m].any()
+            for i, lo_i, hi_i in zip(m, a, b):
+                rk, rv = res.range_hits[i]
+                assert np.array_equal(rk, self.keys[lo_i:hi_i]), f"RANGE keys {i}"
+                assert np.array_equal(rv, self.vals[lo_i:hi_i]), f"RANGE vals {i}"
+        return len(m)
+
+
+class _DispatchTally:
+    """Tracer stand-in: the index then keeps per-impl dispatch counts."""
+
+    def complete(self, *args, **kwargs):
+        pass
+
+
+def busy_share(prof, wall_s: float):
+    """Device busy share of a profiled window and its top kernels, or None
+    when the profiler saw no device time."""
+    ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    busy_us = sum(e.self_device_time_total for e in ev)
+    if not busy_us:
+        return None, []
+    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:6]
+    return busy_us / 1e6 / wall_s, [(e.key[:60], e.self_device_time_total / busy_us)
+                                     for e in top]
+
+
+def run_mix(engine, workload, oracle, OpKind, label):
+    """Serve ``workload`` batch by batch (apply, then maintain(1)), checking
+    every answer; up to 8 batches from the middle of the stream run under
+    torch.profiler for the device busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    spec = workload.spec
+    n_batches = -(-spec.n_ops // spec.batch_size)
+    window = range(n_batches // 2, min(n_batches, n_batches // 2 + 8))
+    t_serve = t_window = 0.0
+    per_kind = {k: [0, 0.0] for k in OpKind}
+    n_ops = n_ranges = 0
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    for b, batch in enumerate(workload.batches()):
+        if b == window.start:
+            torch.cuda.synchronize()
+            prof.start()
+        t0 = time.perf_counter()
+        res = engine.apply(batch)
+        engine.maintain(1)
+        if b in window:
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        t_serve += dt
+        if b in window:
+            t_window += dt
+        if b == window.stop - 1:
+            prof.stop()
+        for k in OpKind:
+            lat = res.latencies(k)
+            per_kind[k][0] += len(lat)
+            per_kind[k][1] += float(lat.sum())
+        n_ranges += oracle.check(batch, res, OpKind)
+        n_ops += len(batch)
+    rates = {k.name.lower(): c / s for k, (c, s) in per_kind.items() if c}
+    log(f"  {label}: {n_ops} ops in {t_serve:.3f} s served "
+        f"({n_ops / t_serve:.1f} ops/s incl. maintain(1) per batch); "
+        "service rates " + ", ".join(f"{k} {v:.1f} ops/s"
+                                     for k, v in rates.items())
+        + f"; every answer == oracle")
+    share, top = busy_share(prof, t_window)
+    log(f"  {label} profiled batches {window.start}..{window.stop - 1}: "
+        + ("device busy share not measured (profiler saw no device time)"
+           if share is None else
+           f"device busy {share:.4f} of {t_window:.4f} s wall (idle "
+           f"{1 - share:.4f}); top kernels by device time: "
+           + "; ".join(f"{k} {f:.3f}" for k, f in top)))
+    return rates, n_ops / t_serve
+
+
+def phase_main_path(dev, args) -> dict:
+    from repro_torch.core.engine_api import OpBatch, OpKind, TorchNBTreeEngine
+    from repro_torch.core.splitmix import splitmix64
+    from repro_torch.kernels import ops
+    from repro_torch.workloads import make_workload
+
+    key_space = 1 << 26
+    if args.preload < 1 << 24:
+        log(f"  CUT: preload {args.preload} keys instead of 2^24")
+    engine = TorchNBTreeEngine(f=4, sigma=4096, max_nodes=4096,
+                               max_results=128, device=dev)
+    idx = engine.idx
+    assert (idx.run_cap, idx.nbits) == (RUN_CAP, NW * 32)
+    idx.attach_tracer(_DispatchTally())
+    flushes = [0, 0]                       # flush units, their dispatches
+    plain_flush = idx._flush
+
+    def counted_flush(node):
+        d0 = idx.dispatch_count
+        plain_flush(node)
+        flushes[0] += 1
+        flushes[1] += idx.dispatch_count - d0
+
+    idx._flush = counted_flush
+    ops.reset_launch_counts()
+
+    # ---- YCSB load phase, in the generator's (hashed) insertion order -----
+    wl = make_workload("insert-heavy", preload=args.preload,
+                       key_space=key_space, n_ops=args.insert_ops,
+                       batch_size=4096, seed=0)
+    pre = wl.preload_batch()
+    oracle = Oracle(pre.keys, pre.vals)
+    # YCSB inserts its load in hashed order: key i is splitmix64(i) % space
+    raw = splitmix64(np.arange(args.preload, dtype=np.uint64)) % np.uint64(key_space)
+    _, first = np.unique(raw, return_index=True)
+    order = np.argsort(first)
+    t0 = time.perf_counter()
+    for i in range(0, len(pre), 4096):
+        sl = order[i:i + 4096]
+        engine.apply(OpBatch.inserts(pre.keys[sl], pre.vals[sl]))
+        engine.maintain(1)
+    engine.drain()
+    t_load = time.perf_counter() - t0
+    log(f"  load: {len(pre)} distinct keys in {t_load:.3f} s "
+        f"({len(pre) / t_load:.1f} inserts/s incl. drain); height "
+        f"{idx.height}, {idx._next_id} node ids, node tables "
+        f"{idx.table_bytes()} bytes on the card ({idx.max_nodes} rows)")
+
+    ins_rates, ins_tput = run_mix(engine, wl, oracle, OpKind, "insert-heavy")
+    wl_e = make_workload("ycsb-e", preload=args.preload, key_space=key_space,
+                         n_ops=args.range_ops, batch_size=1024, seed=1,
+                         range_selectivity=400 / key_space)
+    rng_rates, rng_tput = run_mix(engine, wl_e, oracle, OpKind, "ycsb-e")
+    engine.drain()
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+
+    keys, vals = engine.dump_live()
+    assert np.array_equal(keys, oracle.keys) and np.array_equal(vals, oracle.vals), \
+        "final live table != oracle"
+    st = engine.stats()
+    ds = idx.dispatch_stats
+    log(f"  final live table == oracle ({len(keys)} pairs); height "
+        f"{st.height}; node tables {idx.table_bytes()} bytes "
+        f"({idx.max_nodes} rows x {idx.run_cap} slots)")
+    log(f"  insert {ins_rates['insert']:.1f} ops/s, query "
+        f"{ins_rates['query']:.1f} ops/s, range {rng_rates['range']:.1f} ops/s "
+        f"(service rates); insert-heavy {ins_tput:.1f} ops/s, ycsb-e "
+        f"{rng_tput:.1f} ops/s (served)")
+    log(f"  maintain units {st.maintain_units}: p50 "
+        f"{st.maintain_unit_p50_s * 1e3:.3f} ms, p99 "
+        f"{st.maintain_unit_p99_s * 1e3:.3f} ms, p100 "
+        f"{st.maintain_unit_p100_s * 1e3:.3f} ms; {flushes[0]} flush units, "
+        f"{flushes[1] / max(flushes[0], 1):.3f} dispatches per flush unit; "
+        f"impl calls "
+        + json.dumps({k: v["count"] for k, v in sorted(ds.items())}))
+    log(f"  Bloom: {st.bloom_probes} probes, {st.bloom_negative_skips} "
+        f"negative skips, {st.bloom_false_positives} false positives")
+    return launches
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--preload", type=int, default=1 << 24)
+    ap.add_argument("--insert-ops", type=int, default=1 << 20)
+    ap.add_argument("--range-ops", type=int, default=1 << 14)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.kernels import _build
+
+    dev = torch.device("cuda")
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout.strip()
+    log(f"device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    t0 = time.perf_counter()
+    lib = _build.build()
+    _build.library()
+    log(f"kernels built in {time.perf_counter() - t0:.1f} s: {lib}")
+
+    log("phase 1: kernels vs their plain versions on the card")
+    rows = phase_kernels(dev)
+    log("phase 2+3: main path through TorchNBTreeEngine, checked by an oracle")
+    launches = phase_main_path(dev, args)
+    for name_k, row in rows.items():
+        row["launches"] = launches[name_k]
+        if not row["launches"]:
+            raise AssertionError(f"{name_k} never launched on the main path")
+    log("launches on the main path: " + json.dumps(launches))
+    print(json.dumps({"kernels": list(rows.values())}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,308 @@
+"""Plain versions of the port's kernels vs the JAX package, bit for bit.
+
+The same numpy inputs (made from a seed) go through ``repro.kernels.ops``
+(the Pallas kernels, in interpret mode on the CPU) or ``repro.kernels.ref``
+and through ``repro_torch.kernels.ops`` on CPU tensors, which takes each
+kernel's plain PyTorch version.  The CUDA kernels themselves are held
+against these plain versions on the card by ``chip_smoke.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import _build
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.merge_sorted import merge_sorted_cuda
+
+KEY_MAX = 0xFFFFFFFF
+
+
+@pytest.fixture
+def rng():
+    return np.random.default_rng(0)
+
+
+def _k(a):
+    """uint32 keys -> the port's int64 representation."""
+    return torch.from_numpy(np.asarray(a, np.uint32).astype(np.int64))
+
+
+def _v(a):
+    return torch.from_numpy(np.asarray(a, np.int32))
+
+
+def _np(x):
+    return np.asarray(x).astype(np.int64)
+
+
+def _same(jax_out, torch_out):
+    assert np.array_equal(_np(jax_out), torch_out.numpy().astype(np.int64))
+
+
+def _sorted_run(rng, n, dup=0.0):
+    run = np.sort(rng.choice(2**31, n, replace=False)).astype(np.uint32)
+    if dup and n > 1:          # duplicate keys, as runs keep stale copies
+        i = rng.choice(n - 1, int(dup * n), replace=False)
+        run[i + 1] = run[i]
+        run = np.sort(run)
+    return run
+
+
+def _row(rng, n, cap):
+    """A node-table row: n sorted keys, then KEY_MAX with stale values."""
+    keys = np.full(cap, KEY_MAX, np.uint32)
+    keys[:n] = _sorted_run(rng, n, dup=0.1)
+    return keys, rng.integers(0, 2**31, cap).astype(np.int32)
+
+
+# ------------------------------------------------------------------- merge
+@pytest.mark.parametrize("n,m,cap", [(1, 1, 1), (100, 57, 64), (1024, 700, 2048),
+                                     (3000, 17, 17), (0, 300, 1024)])
+def test_merge_matches_jax_with_padding(rng, n, m, cap):
+    """Whole padded output, KEY_MAX tail values included, equals Pallas."""
+    ak = _sorted_run(rng, n, dup=0.1)
+    av = rng.integers(0, 2**31, n).astype(np.int32)
+    bk, bv = _row(rng, min(m, cap), cap)
+    if n:                      # shared keys exercise the a-first tie-break
+        bk[: min(m, cap) // 2] = np.sort(rng.choice(ak, min(m, cap) // 2))
+        bk = np.sort(bk)
+    jk, jv = jops.merge_sorted(jnp.asarray(ak), jnp.asarray(av),
+                               jnp.asarray(bk), jnp.asarray(bv))
+    tk, tv = tops.merge_sorted(_k(ak), _v(av), _k(bk), _v(bv))
+    _same(jk, tk)
+    _same(jv, tv)
+
+
+def test_merge_tiebreak_a_first():
+    tk, tv = tops.merge_sorted(_k([5, 10, 20]), _v([1, 2, 3]),
+                               _k([10, 20, 30]), _v([-1, -2, -3]))
+    assert tk[:6].tolist() == [5, 10, 10, 20, 20, 30]
+    assert tv[:6].tolist() == [1, 2, -1, 3, -2, -3]
+
+
+@pytest.mark.parametrize("R,n,m", [(1, 64, 64), (3, 100, 1024), (4, 700, 1500)])
+def test_merge_batch_matches_jax(rng, R, n, m):
+    rows = [_row(rng, m - 13 * r, m) for r in range(R)]
+    ak = np.stack([_sorted_run(rng, n, dup=0.1) for _ in range(R)])
+    av = rng.integers(0, 2**31, (R, n)).astype(np.int32)
+    bk = np.stack([r[0] for r in rows])
+    bv = np.stack([r[1] for r in rows])
+    jk, jv = jops.merge_sorted_batch(jnp.asarray(ak), jnp.asarray(av),
+                                     jnp.asarray(bk), jnp.asarray(bv))
+    tk, tv = tops.merge_sorted_batch(_k(ak), _v(av), _k(bk), _v(bv))
+    _same(jk, tk)
+    _same(jv, tv)
+    for r in range(R):         # row r == merge_sorted(a[r], b[r])
+        sk, sv = tops.merge_sorted(_k(ak[r]), _v(av[r]), _k(bk[r]), _v(bv[r]))
+        assert torch.equal(tk[r], sk) and torch.equal(tv[r], sv)
+
+
+def test_merge_batch_empty_run_identity(rng):
+    """An all-KEY_MAX a-run leaves b unchanged per row (untouched children)."""
+    m = 512
+    bk = np.stack([_sorted_run(rng, m) for _ in range(3)])
+    bv = rng.integers(0, 2**31, (3, m)).astype(np.int32)
+    ak = np.full((3, 128), KEY_MAX, np.uint32)
+    tk, tv = tops.merge_sorted_batch(_k(ak), _v(np.zeros((3, 128))), _k(bk),
+                                     _v(bv))
+    assert np.array_equal(tk[:, :m].numpy(), bk.astype(np.int64))
+    assert np.array_equal(tv[:, :m].numpy(), bv)
+
+
+# ------------------------------------------------------------------ search
+@pytest.mark.parametrize("n,q", [(16, 8), (1000, 300), (5000, 2048)])
+def test_search_matches_jax(rng, n, q):
+    run = _sorted_run(rng, n, dup=0.2)
+    vals = np.arange(n, dtype=np.int32)
+    queries = np.concatenate([
+        rng.choice(run, q // 2),
+        rng.integers(2**31, 2**32 - 2, q - q // 2 - 1).astype(np.uint32),
+        np.array([KEY_MAX], np.uint32)])
+    jf, jv, ji = jops.sorted_search(jnp.asarray(run), jnp.asarray(vals),
+                                    jnp.asarray(queries))
+    tf, tv, ti = tops.sorted_search(_k(run), _v(vals), _k(queries))
+    for a, b in ((jf, tf), (jv, tv), (ji, ti)):
+        _same(a, b)
+
+
+def test_search_rows_matches_jax_per_row(rng):
+    """Query t searches the first counts[t] keys of row rows[t]."""
+    counts_row = np.array([0, 37, 511, 512], np.int32)
+    R, cap, Q = len(counts_row), 512, 400
+    tab = [_row(rng, int(c), cap) for c in counts_row]
+    keys = np.stack([t[0] for t in tab])
+    vals = np.stack([t[1] for t in tab])
+    rows = rng.integers(0, R, Q).astype(np.int32)
+    q = np.where(rng.random(Q) < 0.6,
+                 keys[rows, rng.integers(0, cap, Q)] % np.uint32(2**31),
+                 rng.integers(1, 2**31, Q)).astype(np.uint32)
+    tf, tv, ti = tops.sorted_search_rows(_k(keys), _v(vals), _v(rows),
+                                         _v(counts_row[rows]), _k(q))
+    for r in range(R):
+        sel = rows == r
+        c = counts_row[r]      # a KEY_MAX sentinel keeps empty prefixes valid
+        jf, jv, ji = jref.sorted_search_ref(
+            jnp.asarray(np.append(keys[r, :c], np.uint32(KEY_MAX))),
+            jnp.asarray(np.append(vals[r, :c], np.int32(0))),
+            jnp.asarray(q[sel]))
+        assert np.array_equal(np.asarray(jf), tf[torch.from_numpy(sel)].numpy())
+        assert np.array_equal(np.asarray(jv), tv[torch.from_numpy(sel)].numpy())
+        assert np.array_equal(np.asarray(ji), ti[torch.from_numpy(sel)].numpy())
+
+
+# ------------------------------------------------------------------- bloom
+def test_bloom_hash_matches_jax_above_2_63(rng):
+    """Products of two uint32 values pass 2^63 in int64; the port keeps the
+    low 32 bits without signed overflow."""
+    keys = np.concatenate([np.array([0, 1, 0xFFFFFFFE, KEY_MAX, 0xFFFF0000,
+                                     0x80000000], np.uint32),
+                           rng.integers(0, 2**32, 500).astype(np.uint32)])
+    assert int(keys[2]) * 0xD3A2646C > 2**63
+    for nbits in (4096, 217088):
+        _same(jref.bloom_hash_ref(jnp.asarray(keys), 6, nbits),
+              tref.bloom_hash_ref(_k(keys), 6, nbits))
+
+
+@pytest.mark.parametrize("n,nbits,h", [(100, 4096, 3), (4000, 40960, 3),
+                                       (2000, 12288, 6)])
+def test_bloom_build_update_probe_match_jax(rng, n, nbits, h):
+    keys = rng.choice(2**31, n, replace=False).astype(np.uint32)
+    keys[:: 7] = KEY_MAX                          # padding sets no bits
+    words_j = jref.bloom_build_ref(jnp.asarray(keys), nbits, h)
+    words_t = tops.bloom_build(_k(keys), nbits, h)
+    _same(words_j, words_t)
+    # update(build(S), B) == build(S ∪ B), bit for bit
+    half = n // 2
+    grown = tops.bloom_update(tops.bloom_build(_k(keys[:half]), nbits, h),
+                              _k(keys[half:]), nbits, h)
+    assert torch.equal(grown, words_t)
+    _same(jref.bloom_update_ref(jref.bloom_build_ref(jnp.asarray(keys[:half]),
+                                                     nbits, h),
+                                jnp.asarray(keys[half:]), nbits, h), grown)
+    # probe: the Pallas kernel (interpret) vs the plain version
+    q = np.concatenate([keys[keys != KEY_MAX],
+                        rng.integers(2**31, 2**32 - 1, 500).astype(np.uint32)])
+    pj = jops.bloom_probe(words_j, jnp.asarray(q), nbits=nbits, h=h)
+    pt = tops.bloom_probe(words_t, _k(q), nbits=nbits, h=h)
+    _same(pj, pt)
+    assert pt[: int((keys != KEY_MAX).sum())].all()   # no false negatives
+
+
+def test_bloom_batched_build_equals_per_row(rng):
+    keys = np.stack([_row(rng, 300, 512)[0] for _ in range(3)])
+    batched = tops.bloom_build(_k(keys), 8192, 3)
+    for r in range(3):
+        _same(jref.bloom_build_ref(jnp.asarray(keys[r]), 8192, 3), batched[r])
+
+
+def test_bloom_probe_rows_matches_jax_per_row(rng):
+    nbits, h, R = 8192, 3, 4
+    sets = [rng.choice(2**31, 600, replace=False).astype(np.uint32)
+            for _ in range(R)]
+    table = np.stack([np.asarray(jref.bloom_build_ref(jnp.asarray(s), nbits, h))
+                      for s in sets])
+    rows = rng.permutation(np.repeat(np.arange(R, dtype=np.int32), 250))
+    q = np.where(rng.random(1000) < 0.5,
+                 np.stack(sets)[rows, rng.integers(0, 600, 1000)],
+                 rng.integers(0, 2**32, 1000)).astype(np.uint32)
+    got = tops.bloom_probe_rows(_k(table), _v(rows), _k(q), nbits=nbits, h=h)
+    for r in range(R):
+        sel = rows == r
+        want = jref.bloom_probe_ref(jnp.asarray(table[r]), jnp.asarray(q[sel]),
+                                    nbits, h)
+        assert np.array_equal(np.asarray(want), got[torch.from_numpy(sel)].numpy())
+
+
+# -------------------------------------------------------------- range scan
+def _scan_both(run, vals, lo, hi, maxr):
+    jk, jv, jc = jops.range_scan(jnp.asarray(run), jnp.asarray(vals),
+                                 jnp.asarray(np.asarray(lo, np.uint32)),
+                                 jnp.asarray(np.asarray(hi, np.uint32)),
+                                 max_results=maxr)
+    tk, tv, tc = tops.range_scan(_k(run), _v(vals), _k(lo), _k(hi),
+                                 max_results=maxr)
+    for a, b in ((jk, tk), (jv, tv), (jc, tc)):
+        _same(a, b)
+    return tk, tv, tc
+
+
+@pytest.mark.parametrize("n,q,maxr", [(16, 8, 128), (1000, 64, 128),
+                                      (5000, 300, 256)])
+def test_range_scan_matches_jax(rng, n, q, maxr):
+    run = _sorted_run(rng, n, dup=0.1)
+    vals = np.arange(n, dtype=np.int32)
+    lo = rng.integers(0, 2**31, q).astype(np.uint32)
+    hi = (lo.astype(np.uint64) + rng.integers(0, 2**27, q)).clip(
+        0, 2**32 - 2).astype(np.uint32)
+    _scan_both(run, vals, lo, hi, maxr)
+
+
+def test_range_scan_edge_cases():
+    """Duplicates at the boundary, ranges below/above every key, inverted
+    and point ranges, truncation count, and KEY_MAX padding in the run."""
+    run = np.array([5, 7, 7, 7, 9, 9], np.uint32)
+    k, v, c = _scan_both(run, np.arange(6, dtype=np.int32), [7, 7, 9], [7, 9, 9],
+                         128)
+    assert c.tolist() == [3, 5, 2]
+    assert k[0, :3].tolist() == [7, 7, 7] and v[2, :2].tolist() == [4, 5]
+    run = np.array([10, 20, 30, KEY_MAX, KEY_MAX], np.uint32)
+    k, v, c = _scan_both(run, np.arange(5, dtype=np.int32),
+                         [20, 21, 25, 0, 1000, 0], [20, 29, 15, 2**32 - 2, 2000, 5],
+                         128)
+    assert c.tolist() == [1, 0, 0, 3, 0, 0]
+    assert (k[3, 3:] == KEY_MAX).all()
+    k, v, c = _scan_both(np.arange(1, 1001, dtype=np.uint32),
+                         np.arange(1000, dtype=np.int32), [1], [2000], 128)
+    assert c[0] == 1000 and k[0].tolist() == list(range(1, 129))
+
+
+def test_range_scan_rows_matches_jax_per_candidate(rng):
+    """Candidate (b, m) scans the first counts[b, m] keys of row nodes[b, m]."""
+    R, cap, B, M, scan_cap = 4, 512, 24, 4, 64
+    counts_row = np.array([0, 3, 400, 512], np.int32)
+    tab = [_row(rng, int(c), cap) for c in counts_row]
+    keys = np.stack([t[0] for t in tab])
+    vals = np.stack([t[1] for t in tab])
+    nodes = rng.integers(0, R, (B, M)).astype(np.int32)
+    lo = rng.integers(0, 2**31, B).astype(np.uint32)
+    hi = (lo.astype(np.uint64) + rng.integers(0, 2**26, B)).astype(np.uint32)
+    hi[:4] = lo[:4] - 1                                # inverted: empty
+    tk, tv, tn = tops.range_scan_rows(_k(keys), _v(vals), _v(nodes),
+                                      _v(counts_row[nodes]), _k(lo), _k(hi),
+                                      scan_cap)
+    for b in range(B):
+        for m in range(M):
+            r = nodes[b, m]
+            c = counts_row[r]
+            jk, jv, jc = jref.range_scan_ref(
+                jnp.asarray(np.append(keys[r, :c], np.uint32(KEY_MAX))),
+                jnp.asarray(np.append(vals[r, :c], np.int32(0))),
+                jnp.asarray(lo[b: b + 1]), jnp.asarray(hi[b: b + 1]), scan_cap)
+            _same(jk[0], tk[b, m])
+            _same(jv[0], tv[b, m])
+            assert int(np.asarray(jc)[0]) == int(tn[b, m])
+
+
+# -------------------------------------------------------- dispatch & build
+def test_cuda_wrapper_rejects_cpu_tensors():
+    """The kernel wrappers take CUDA tensors only: no quiet CPU path."""
+    a = _k([1, 2, 3])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        merge_sorted_cuda(a, _v([0, 0, 0]), a, _v([0, 0, 0]))
+    with pytest.raises(ValueError, match="device"):
+        tops.merge_sorted(a.to("meta"), _v([0, 0, 0]), a, _v([0, 0, 0]))
+
+
+def test_build_raises_without_nvcc(monkeypatch, tmp_path):
+    """A missing toolkit is an error, never a silent fallback."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build, "CUDA_ROOTS", ())
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+    assert len(_build._digest()) == 16
