@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the NB-tree device tier on one NVIDIA card.
+"""Drive the PyTorch/CUDA port (the NB-tree device tier and the paged-KV
+serving bridge) on one NVIDIA card.
 
 Run from the repository root (needs one CUDA card, the CUDA toolkit and no
 network)::
@@ -7,26 +8,40 @@ network)::
     python3 chip_smoke.py
 
 1. Builds the hand-written kernels (``src/repro_torch/kernels/csrc``) and
-   holds every kernel of the main path against its plain PyTorch version on
-   the card, bit for bit, at the main path's shapes and on the edge cases
-   of the kernel tests; times each (CUDA events), its plain version and,
-   where one PyTorch call computes the same function, that call.
-2. Drives the main path through the engine a user calls:
+   holds every kernel against its plain PyTorch version on the card at the
+   shapes of the path that runs it and on the edge cases of the kernel
+   tests: the integer kernels bit for bit, ``paged_attention`` to the JAX
+   kernel tests' tolerances (fp32 3e-5, bf16 3e-2).  Times each (CUDA
+   graph replay between CUDA events), its plain version and, where one
+   PyTorch call computes the same function, that call.
+2. Drives the NB-tree path through the engine a user calls:
    ``TorchNBTreeEngine(f=4, sigma=4096)`` on ``cuda``; a YCSB load phase of
    ``preload = 2^24`` keys over ``key_space = 2^26``, the paper's
    ``insert-heavy`` mix (2^20 ops, batches of 4096), YCSB workload E's short
    scans (``ycsb-e``, zipfian, ~400-key spans, 2^14 ops, batches of 1024),
-   then a ``drain``.  Kernel launch counters are zeroed just before and read
-   just after; every kernel must have launched.
+   then a ``drain``.
 3. Holds every QUERY and RANGE answer and the final live table against a
    numpy last-writer-wins oracle of the same stream.
+4. Serves qwen3-8b at full width and depth (bf16 weights drawn on the card
+   from ``--seed``) through ``repro_torch.serve.engine.Engine``
+   (max_batch 4, 1024 pages of 8 slots, fp32 pages): 8 requests of
+   256-token prompts, 32 new tokens each.  Every layer's ``paged_attention``
+   output on the first and last decode step of each batch is held against
+   the plain version; every page must be reclaimed.  Prints prefill and
+   decode-step times, tokens/s and the page index's share of each step.
+5. Exactness at full width, depth cut to 4 layers, fp32: the engine's
+   greedy tokens for 2 requests of 64-token prompts (8 new tokens) must
+   equal the contiguous-cache ``decode_step``'s.
 
-Prints a ``kernels`` JSON line, the card's name and power limit, and, last,
+Kernel launch counters are zeroed just before each path (2-3, 4) and read
+just after; every kernel must have launched on its own path.  Prints a
+``kernels`` JSON line, the card's name and power limit, and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -37,9 +52,12 @@ import numpy as np
 import torch
 
 PEAK_BYTES_S = 3.35e12       # H100 SXM HBM3, NVIDIA data sheet
-PEAK_OPS_S = 67e12           # H100 SXM non-tensor fp32 rate, used for int ops
+PEAK_OPS_S = 67e12           # H100 SXM non-tensor fp32 rate (attention's fp32
+                             # ops; it stands in for int ops too)
 KEY_MAX = 0xFFFFFFFF
 RUN_CAP, NW, H = 21504, 6784, 3      # f=4, sigma=4096 node-row shape
+#: the path whose launches a kernel's row reports (the NB-tree path if absent)
+KERNEL_PATH = {"paged_attention": "serve"}
 
 
 def log(*a):
@@ -133,6 +151,7 @@ def phase_kernels(dev) -> dict:
     from repro_torch.kernels import bloom_filter as bf
     from repro_torch.kernels import merge_sorted as ms
     from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import range_scan as rs
     from repro_torch.kernels import sorted_search as ss
 
@@ -154,7 +173,7 @@ def phase_kernels(dev) -> dict:
                       "bound_ms": max(t_bytes, t_ops),
                       "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                       "library_ms": ms_l}
-        log(f"  {name}: exact (max abs err {err}); kernel {ms_k:.4f} ms "
+        log(f"  {name}: max abs err {err} vs plain; kernel {ms_k:.4f} ms "
             f"(per call from Python {ms_call:.4f} ms), plain {ms_p:.4f} ms, library "
             f"{'n/a' if ms_l is None else f'{ms_l:.4f} ms'}, bound "
             f"{rows[name]['bound_ms']:.4f} ms ({rows[name]['bound_by']})")
@@ -283,6 +302,87 @@ def phase_kernels(dev) -> dict:
     log(f"  one-run forms sorted_search, bloom_probe, range_scan: exact "
         f"(run of {rc} keys, {T} queries)")
     del tkeys, tvals, bloom
+    torch.cuda.empty_cache()
+
+    # ---- paged attention: the serving path's decode shapes ----------------
+    def pa_inputs(B, KVH, G, D, S, P, MP, qdt, kvdt, lens=None):
+        randn = lambda *shape: torch.randn(shape, generator=g, device=dev)
+        if B * MP < P:                       # distinct pages, none the null one
+            bt = (torch.randperm(P - 1, generator=g, device=dev)[: B * MP]
+                  + 1).reshape(B, MP)
+        else:
+            bt = torch.randint(0, P, (B, MP), generator=g, device=dev)
+        if lens is None:
+            lens = torch.randint(1, MP * S + 1, (B,), generator=g, device=dev)
+        return (randn(B, KVH, G, D).to(qdt), randn(KVH, P, S, D).to(kvdt),
+                randn(KVH, P, S, D).to(kvdt), bt.to(torch.int32),
+                torch.as_tensor(lens, device=dev).to(torch.int32))
+
+    def pa_check(label, tol, args):
+        got = pa.paged_attention_cuda(*args)
+        want = pa.paged_attention_plain(*args)
+        torch.cuda.synchronize()
+        assert got.dtype == want.dtype == args[0].dtype
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol, msg=lambda m: f"{label}: {m}")
+        return float((got.float() - want.float()).abs().max())
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    errs = []
+    for B_, KVH_, G_, D_, S_, MP_ in ((2, 1, 8, 128, 16, 4), (4, 2, 8, 128, 16, 6),
+                                      (1, 4, 4, 64, 8, 3), (3, 2, 16, 256, 32, 2),
+                                      (4, 2, 2, 32, 8, 1)):
+        errs.append(pa_check(f"paged_attention {B_, KVH_, G_, D_, S_, MP_}",
+                             3e-5, pa_inputs(B_, KVH_, G_, D_, S_, MP_ * 4, MP_,
+                                             f32, f32)))
+    errs.append(pa_check("paged_attention bf16", 3e-2,
+                         pa_inputs(2, 2, 4, 128, 16, 16, 4, bf16, bf16,
+                                   lens=[64, 17])))
+    args0 = pa_inputs(3, 2, 4, 64, 8, 12, 3, f32, f32, lens=[0, 5, 24])
+    errs.append(pa_check("paged_attention seq_len 0", 3e-5, args0))
+    mean_v = args0[2][:, args0[3][0].long()].reshape(2, -1, 64).mean(dim=1)
+    got0 = pa.paged_attention_cuda(*args0)[0]
+    torch.testing.assert_close(got0, mean_v[:, None].expand_as(got0),
+                               atol=3e-5, rtol=3e-5)
+    bad = args0[3].clone()
+    bad[1, 2] = 12
+    try:
+        pa.paged_attention_cuda(*args0[:3], bad, args0[4])
+        raise AssertionError("an out-of-range page id must raise")
+    except IndexError:
+        pass
+    log(f"  paged_attention edge cases (tests/test_kernels.py shapes, MP=1, "
+        f"bf16, seq_len 0 = mean of V, out-of-range id raises): max abs err "
+        f"{max(errs):.3g}")
+
+    B, KVH, G, D, S, P, MP = 4, 8, 4, 128, 8, 1024, 36
+    args32 = pa_inputs(B, KVH, G, D, S, P, MP, f32, f32)
+    err32 = pa_check("paged_attention fp32 serving shapes", 3e-5, args32)
+    args = (args32[0].to(bf16),) + args32[1:]           # the served types
+    err = pa_check("paged_attention bf16-over-fp32 serving shapes", 3e-2, args)
+    log(f"  paged_attention at the serving shapes B={B} KVH={KVH} G={G} D={D} "
+        f"S={S} P={P} MP={MP}: fp32 max abs err {err32:.3g}, bf16 q over "
+        f"fp32 pages {err:.3g}")
+    q, kp, vp, bt, lens = args
+    flat = bt.reshape(-1)
+    mask = (torch.arange(MP * S, device=dev) < lens[:, None])[:, None, None, :]
+
+    def library():
+        k = kp.index_select(1, flat).view(KVH, B, MP * S, D).transpose(0, 1)
+        v = vp.index_select(1, flat).view(KVH, B, MP * S, D).transpose(0, 1)
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.float(), k, v, attn_mask=mask).to(q.dtype)
+
+    torch.testing.assert_close(library().float(),
+                               pa.paged_attention_plain(*args).float(),
+                               atol=3e-2, rtol=3e-2)
+    kv_elems = B * KVH * MP * S * D
+    record("paged_attention", "paged_attention.cu",
+           "src/repro/kernels/paged_attention.py:95", err,
+           lambda: pa.paged_attention_cuda(*args),
+           lambda: pa.paged_attention_plain(*args), library,
+           nbytes=kv_elems * (4 + 4) + 2 * q.numel() * 2 + bt.numel() * 4 + B * 4,
+           nops=4 * B * KVH * G * MP * S * D + 5 * B * KVH * G * MP * S)
     torch.cuda.empty_cache()
     return rows
 
@@ -493,11 +593,206 @@ def phase_main_path(dev, args) -> dict:
     return launches
 
 
+# ------------------------------------------------------------------ phase 4
+def pct(xs, q):
+    return float(np.percentile(np.asarray(xs), q))
+
+
+def phase_serve(dev, args, cfg=None) -> dict:
+    """qwen3-8b at full width through the serving engine; returns the kernel
+    launches of this path.  ``cfg`` replaces the config only to rehearse
+    the phase on the CPU at a reduced size."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.models import registry
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import INDEX_PARTS, Engine, Request
+
+    if cfg is None:
+        cfg = registry.get_config("qwen3-8b")
+        assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                cfg.resolved_head_dim, cfg.d_ff, cfg.vocab, cfg.qk_norm,
+                cfg.rope_base, cfg.dtype) == (36, 4096, 32, 8, 128, 12288,
+                                              151936, True, 1e6, "bfloat16")
+    n_req, prompt_len, n_new, max_batch = 8, 256, 32, 4
+    n_pages, page_size = 1024, 8
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=args.seed, device=dev)
+    torch.cuda.synchronize()
+    w_bytes = sum(p.nbytes for p in model.parameters())
+    log(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV heads x "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+        f"{cfg.dtype}; {w_bytes} weight bytes drawn on the card from seed "
+        f"{args.seed} in {time.perf_counter() - t0:.3f} s")
+    eng = Engine(cfg, model, max_batch=max_batch, n_pages=n_pages,
+                 page_size=page_size)
+    page_bytes = eng.cache.k_pages.nbytes + eng.cache.v_pages.nbytes
+    rng = np.random.default_rng(args.seed)
+    prompts = [rng.integers(1, cfg.vocab, prompt_len).tolist()
+               for _ in range(n_req)]
+    steps = n_new - 1                      # decode steps per batch
+    n_batches = -(-n_req // max_batch)
+    L = cfg.n_layers
+
+    def traffic(first_rid):
+        return [Request(first_rid + i, prompt, max_new_tokens=n_new)
+                for i, prompt in enumerate(prompts)]
+
+    # Run A, measured: launch counters and host clocks only.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs = eng.run(traffic(0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+
+    n_tok = sum(len(r.out) for r in reqs)
+    assert all(r.done and len(r.out) == n_new for r in reqs)
+    assert len(eng.cache.free) == n_pages - 1, "every page must be reclaimed"
+    assert launches["paged_attention"] == L * steps * n_batches
+    st, pf = eng.step_s, eng.prefill_s
+    log(f"  served {n_req} requests ({n_batches} batches of {max_batch}, "
+        f"{prompt_len}-token prompts, {n_new} new tokens each): {n_tok} "
+        f"tokens in {wall:.3f} s = {n_tok / wall:.1f} tokens/s; prefill "
+        f"{np.mean(pf) * 1e3:.3f} ms per batch ({', '.join(f'{x * 1e3:.3f}' for x in pf)}); "
+        f"decode step p50 {pct(st, 50) * 1e3:.3f} ms, p99 "
+        f"{pct(st, 99) * 1e3:.3f} ms, max {max(st) * 1e3:.3f} ms over "
+        f"{len(st)} steps ({max_batch / np.median(st):.1f} tokens/s in decode)")
+    idx = eng.decoder.index_s
+    share = sum(np.asarray(idx[k]) for k in INDEX_PARTS) / np.asarray(st)
+    log("  page-index host time per decode step: "
+        + ", ".join(f"{k} {np.mean(idx[k]) * 1e3:.4f} ms" for k in INDEX_PARTS)
+        + f"; share of the step: mean {share.mean():.4f}, p50 "
+        f"{pct(share, 50):.4f}, max {share.max():.4f}")
+    ix = eng.cache.index
+    log(f"  page index: height {ix.height}, units done {ix.units_done}, "
+        f"{ix.dispatch_count} impl calls; free pages after completion "
+        f"{len(eng.cache.free)} of {n_pages} (page 0 is the null page); "
+        f"fp32 pages {page_bytes} bytes; peak device memory "
+        f"{torch.cuda.max_memory_allocated()} bytes")
+    log("  launches on the serving path: " + json.dumps(launches))
+
+    # Run B, the same traffic again: every layer's kernel output on the
+    # first and last decode step of each batch is held against the plain
+    # version (which launches no kernel).
+    real_attn = ops.paged_attention
+    seen = {"calls": 0, "checked": 0, "err": 0.0}
+
+    def checked_attention(q, kp, vp, bt, lens):
+        out = real_attn(q, kp, vp, bt, lens)
+        if (seen["calls"] // L) % steps in (0, steps - 1):
+            want = pa.paged_attention_plain(q, kp, vp, bt, lens)
+            torch.testing.assert_close(out.float(), want.float(), atol=3e-2,
+                                       rtol=3e-2)
+            seen["err"] = max(seen["err"],
+                              float((out.float() - want.float()).abs().max()))
+            seen["checked"] += 1
+        seen["calls"] += 1
+        return out
+
+    ops.paged_attention = checked_attention
+    try:
+        again = eng.run(traffic(n_req))
+    finally:
+        ops.paged_attention = real_attn
+    assert seen["checked"] == 2 * L * n_batches
+    assert len(eng.cache.free) == n_pages - 1
+    log(f"  run B: paged_attention vs plain on the first and last decode "
+        f"step of each batch: {seen['checked']} calls, max abs err "
+        f"{seen['err']:.3g} (bf16 tol 3e-2); same tokens as run A: "
+        f"{[r.out for r in again] == [r.out for r in reqs]}")
+
+    # Run C, one more batch with decode steps 2..9 under torch.profiler:
+    # the device's busy share of a decode step.
+    real_decode, calls, wall_p = eng.decoder.decode, [0], [0.0]
+    window = range(2, 10)
+    prof = profile(activities=[ProfilerActivity.CUDA])
+
+    def profiled_decode(*a, **kw):
+        step = calls[0]
+        calls[0] += 1
+        if step not in window:
+            return real_decode(*a, **kw)
+        torch.cuda.synchronize()
+        if step == window.start:
+            prof.start()
+        t = time.perf_counter()
+        out = real_decode(*a, **kw)
+        torch.cuda.synchronize()
+        wall_p[0] += time.perf_counter() - t
+        if step == window.stop - 1:
+            prof.stop()
+        return out
+
+    eng.decoder.decode = profiled_decode
+    eng.run([Request(n_req + i, rng.integers(1, cfg.vocab, prompt_len).tolist(),
+                     max_new_tokens=window.stop + 1) for i in range(max_batch)])
+    assert len(eng.cache.free) == n_pages - 1
+    busy, top = busy_share(prof, wall_p[0])
+    log(f"  profiled decode steps {window.start}..{window.stop - 1} of an "
+        f"extra batch: "
+        + ("device busy share not measured (profiler saw no device time)"
+           if busy is None else
+           f"device busy {busy:.4f} of {wall_p[0]:.4f} s wall (idle "
+           f"{1 - busy:.4f}); top kernels by device time: "
+           + "; ".join(f"{k} {f:.3f}" for k, f in top)))
+    del eng, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ------------------------------------------------------------------ phase 5
+def phase_exact(dev, args) -> None:
+    """Full width, depth cut to 4 layers, fp32: the engine's greedy tokens
+    equal the contiguous-cache decode's."""
+    from repro_torch.models import registry
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import Engine, Request
+
+    depth, n_req, prompt_len, n_new = 4, 2, 64, 8
+    full = registry.get_config("qwen3-8b")
+    cfg = dataclasses.replace(full, n_layers=depth,
+                              segments=(("dense", depth),), dtype="float32")
+    log(f"  CUT: depth {depth} of {full.n_layers} layers (full width, fp32); "
+        f"{n_req} requests of {prompt_len}-token prompts, {n_new} new tokens")
+    model = init_params(cfg, seed=args.seed, device=dev)
+    prompts = np.random.default_rng(args.seed + 1).integers(
+        1, cfg.vocab, (n_req, prompt_len))
+    eng = Engine(cfg, model, max_batch=4, n_pages=1024, page_size=8)
+    reqs = eng.run([Request(i, prompts[i].tolist(), max_new_tokens=n_new)
+                    for i in range(n_req)])
+    assert len(eng.cache.free) == 1023
+
+    cache = model.init_cache(n_req, prompt_len + n_new)
+    toks = torch.as_tensor(prompts, device=dev)
+    for i in range(prompt_len):
+        logits, cache = model.decode_step(toks[:, i], cache, i)
+    ref = [logits.argmax(-1)]
+    for s in range(n_new - 1):
+        logits, cache = model.decode_step(ref[-1], cache, prompt_len + s)
+        ref.append(logits.argmax(-1))
+    ref = torch.stack(ref, 1).tolist()
+    diff = float((eng.decoder.last_logits - logits).abs().max())
+    log(f"  engine tokens == contiguous decode tokens: "
+        f"{[r.out for r in reqs] == ref}; last step's max abs logit "
+        f"difference {diff:.3g}")
+    assert [r.out for r in reqs] == ref, ([r.out for r in reqs], ref)
+    del eng, model, cache
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--preload", type=int, default=1 << 24)
     ap.add_argument("--insert-ops", type=int, default=1 << 20)
     ap.add_argument("--range-ops", type=int, default=1 << 14)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the served model's weights and prompts")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -506,6 +801,9 @@ def main() -> int:
     from repro_torch.kernels import _build
 
     dev = torch.device("cuda")
+    # fp32 matmuls and convolutions in full fp32 (phase 5 compares tokens)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -518,13 +816,18 @@ def main() -> int:
 
     log("phase 1: kernels vs their plain versions on the card")
     rows = phase_kernels(dev)
-    log("phase 2+3: main path through TorchNBTreeEngine, checked by an oracle")
-    launches = phase_main_path(dev, args)
+    log("phase 2+3: NB-tree path through TorchNBTreeEngine, checked by an oracle")
+    paths = {"nbtree": phase_main_path(dev, args)}
+    log("launches on the NB-tree path: " + json.dumps(paths["nbtree"]))
+    log("phase 4: qwen3-8b served at full width through the paged-KV engine")
+    paths["serve"] = phase_serve(dev, args)
+    log("phase 5: engine vs contiguous decode, exact tokens")
+    phase_exact(dev, args)
     for name_k, row in rows.items():
-        row["launches"] = launches[name_k]
+        path = KERNEL_PATH.get(name_k, "nbtree")
+        row["launches"] = paths[path][name_k]
         if not row["launches"]:
-            raise AssertionError(f"{name_k} never launched on the main path")
-    log("launches on the main path: " + json.dumps(launches))
+            raise AssertionError(f"{name_k} never launched on the {path} path")
     print(json.dumps({"kernels": list(rows.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -29,10 +29,11 @@ CUDA_ROOTS = ("/usr/local/cuda",)      # searched after PATH and CUDA_HOME
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
-P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 #: C signature of every launcher: pointers and the stream as ``c_void_p``
-#: (so ctypes never cuts a 64-bit address), sizes as ``c_int``/``c_longlong``.
+#: (so ctypes never cuts a 64-bit address), sizes as ``c_int``/``c_longlong``,
+#: scales as ``c_float``.
 #: Each returns the ``cudaError_t`` of its launch.
 SIGNATURES = {
     "merge_sorted_launch": (P, P, P, P, P, P, I, I, I, I, I, P),
@@ -42,6 +43,8 @@ SIGNATURES = {
     "bloom_probe_rows_launch": (P, LL, P, P, P, I, I, I, P),
     "range_scan_launch": (P, P, I, P, P, P, P, P, I, I, P),
     "range_scan_rows_launch": (P, P, LL, P, P, P, P, P, P, P, I, I, I, P),
+    "paged_attention_launch": (P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, I,
+                               P),
 }
 
 

@@ -1,4 +1,4 @@
-"""The one dispatch point for the device-tier kernels.
+"""The one dispatch point for the hand-written kernels.
 
 A CPU tensor goes to the kernel's plain PyTorch version, a CUDA tensor to
 the hand-written CUDA kernel; any other device raises.  There is no
@@ -13,11 +13,12 @@ from __future__ import annotations
 
 from . import bloom_filter as _bf
 from . import merge_sorted as _ms
+from . import paged_attention as _pa
 from . import range_scan as _rs
 from . import sorted_search as _ss
 from .ref import bloom_build_ref, bloom_update_ref
 
-_MODULES = (_ms, _ss, _bf, _rs)
+_MODULES = (_ms, _ss, _bf, _rs, _pa)
 
 
 def _on_card(t) -> bool:
@@ -73,6 +74,13 @@ def range_scan_rows(table_keys, table_vals, nodes, counts, lo, hi, cap: int):
     fn = (_rs.range_scan_rows_cuda if _on_card(table_keys)
           else _rs.range_scan_rows_plain)
     return fn(table_keys, table_vals, nodes, counts, lo, hi, cap)
+
+
+def paged_attention(q, k_pages, v_pages, block_tables, seq_lens):
+    """Decode attention over the pages ``block_tables`` names (serving)."""
+    fn = (_pa.paged_attention_cuda if _on_card(q)
+          else _pa.paged_attention_plain)
+    return fn(q, k_pages, v_pages, block_tables, seq_lens)
 
 
 def bloom_build(keys, nbits: int, h: int = 3):

@@ -1,0 +1,57 @@
+"""Carry the JAX package's weights across to the port.
+
+``params_from_reference(params_np, cfg)`` takes the JAX param pytree as
+numpy arrays (``jax.tree.map(np.asarray, init_params(key, cfg))``) and
+returns a :class:`Transformer` holding the same values: each ``seg{i}``
+leaf's leading (layer) axis is unstacked into that segment's per-layer
+modules.  The port's forward then computes what the JAX forward computes,
+which is how the tests compare the two.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .transformer import Transformer
+
+
+def _flatten(tree, prefix=""):
+    out = {}
+    for key, val in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(val, dict):
+            out.update(_flatten(val, name + "."))
+        else:
+            out[name] = val
+    return out
+
+
+def _tensor(arr) -> torch.Tensor:
+    arr = np.array(arr)                     # a writable copy
+    if arr.dtype.name == "bfloat16":        # ml_dtypes: carry the bits
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def params_from_reference(params_np, cfg, device="cpu") -> Transformer:
+    """A Transformer on ``device`` with the weights of ``params_np``."""
+    named = _flatten({k: v for k, v in params_np.items()
+                      if not k.startswith("seg")})
+    layer = 0
+    for i, (_kind, count) in enumerate(cfg.segments):
+        seg = _flatten(params_np[f"seg{i}"])
+        for j in range(count):
+            named.update({f"layers.{layer}.{k}": v[j] for k, v in seg.items()})
+            layer += 1
+    model = Transformer(cfg, device=device)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            src = _tensor(named.pop(name))
+            if src.shape != p.shape or src.dtype != p.dtype:
+                raise ValueError(f"{name}: reference {tuple(src.shape)} "
+                                 f"{src.dtype}, port {tuple(p.shape)} {p.dtype}")
+            p.copy_(src)
+    if named:
+        raise ValueError(f"reference params the port has no place for: "
+                         f"{sorted(named)}")
+    return model

@@ -1,4 +1,5 @@
-"""Plain versions of the port's kernels vs the JAX package, bit for bit.
+"""Plain versions of the port's kernels vs the JAX package: the integer
+kernels bit for bit, paged attention to the JAX kernel tests' tolerances.
 
 The same numpy inputs (made from a seed) go through ``repro.kernels.ops``
 (the Pallas kernels, in interpret mode on the CPU) or ``repro.kernels.ref``
@@ -17,6 +18,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.merge_sorted import merge_sorted_cuda
+from repro_torch.kernels.paged_attention import paged_attention_cuda
 
 KEY_MAX = 0xFFFFFFFF
 
@@ -285,6 +287,80 @@ def test_range_scan_rows_matches_jax_per_candidate(rng):
             _same(jk[0], tk[b, m])
             _same(jv[0], tv[b, m])
             assert int(np.asarray(jc)[0]) == int(tn[b, m])
+
+
+# --------------------------------------------------------- paged attention
+def _paged_inputs(rng, B, KVH, G, D, S, MP, dtype=np.float32, lens=None):
+    P = MP * 4
+    q = rng.normal(size=(B, KVH, G, D)).astype(np.float32)
+    kp = rng.normal(size=(KVH, P, S, D)).astype(np.float32)
+    vp = rng.normal(size=(KVH, P, S, D)).astype(np.float32)
+    bt = rng.integers(0, P, (B, MP)).astype(np.int32)
+    if lens is None:
+        lens = rng.integers(1, MP * S + 1, (B,))
+    return q, kp, vp, bt, np.asarray(lens, np.int32)
+
+
+def _paged_both(q, kp, vp, bt, lens, jdtype=jnp.float32,
+                tdtype=torch.float32):
+    """The Pallas kernel (interpret mode) and the port's plain version on
+    the same inputs, both as fp32 numpy."""
+    jout = jops.paged_attention(jnp.asarray(q, jdtype), jnp.asarray(kp, jdtype),
+                                jnp.asarray(vp, jdtype), jnp.asarray(bt),
+                                jnp.asarray(lens))
+    tout = tops.paged_attention(*(torch.from_numpy(x).to(tdtype)
+                                  for x in (q, kp, vp)),
+                                torch.from_numpy(bt), torch.from_numpy(lens))
+    assert tout.dtype == tdtype and tout.shape == q.shape
+    return np.asarray(jout, np.float32), tout.float().numpy()
+
+
+@pytest.mark.parametrize("B,KVH,G,D,S,MP", [
+    (2, 1, 8, 128, 16, 4), (4, 2, 8, 128, 16, 6),
+    (1, 4, 4, 64, 8, 3), (3, 2, 16, 256, 32, 2),
+])
+def test_paged_attention_matches_pallas(rng, B, KVH, G, D, S, MP):
+    """tests/test_kernels.py's shapes, fp32, its tolerance."""
+    j, t = _paged_both(*_paged_inputs(rng, B, KVH, G, D, S, MP))
+    np.testing.assert_allclose(t, j, atol=3e-5, rtol=3e-5)
+
+
+def test_paged_attention_bf16_matches_pallas(rng):
+    j, t = _paged_both(*_paged_inputs(rng, 2, 2, 4, 128, 16, 4,
+                                      lens=[64, 17]),
+                       jdtype=jnp.bfloat16, tdtype=torch.bfloat16)
+    np.testing.assert_allclose(t, j, atol=3e-2, rtol=3e-2)
+
+
+def test_paged_attention_empty_sequence_is_mean_of_v(rng):
+    """seq_len 0: the Pallas kernel's -1e30 mask is finite, so it averages
+    V over all MP*S gathered slots (the ref gives NaN); the port agrees with
+    the kernel, not the ref."""
+    q, kp, vp, bt, lens = _paged_inputs(rng, 3, 2, 4, 64, 8, 3,
+                                        lens=[0, 5, 24])
+    j, t = _paged_both(q, kp, vp, bt, lens)
+    np.testing.assert_allclose(t, j, atol=3e-5, rtol=3e-5)
+    mean_v = vp[:, bt[0]].reshape(2, -1, 64).mean(axis=1)     # (KVH, D)
+    np.testing.assert_allclose(t[0], np.broadcast_to(mean_v[:, None], t[0].shape),
+                               atol=3e-5, rtol=3e-5)
+    assert np.isnan(np.asarray(jref.paged_attention_ref(
+        *(jnp.asarray(x) for x in (q, kp, vp, bt, lens)))[0])).all()
+
+
+def test_paged_attention_one_page(rng):
+    j, t = _paged_both(*_paged_inputs(rng, 4, 2, 2, 32, 8, 1, lens=[1, 3, 8, 9]))
+    np.testing.assert_allclose(t, j, atol=3e-5, rtol=3e-5)
+
+
+@pytest.mark.parametrize("bad", [-1, 12])
+def test_paged_attention_rejects_out_of_range_pages(rng, bad):
+    q, kp, vp, bt, lens = (torch.from_numpy(x) for x in
+                           _paged_inputs(rng, 2, 2, 4, 32, 8, 3))
+    bt[1, 2] = bad                                         # P = 12
+    with pytest.raises(IndexError, match="outside"):
+        tops.paged_attention(q, kp, vp, bt, lens)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        paged_attention_cuda(q, kp, vp, bt, lens)
 
 
 # -------------------------------------------------------- dispatch & build
