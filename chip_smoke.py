@@ -46,6 +46,7 @@ import json
 import subprocess
 import sys
 import time
+from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -78,14 +79,16 @@ def call_ms(fn, reps: int) -> float:
     return t0.elapsed_time(t1) / reps
 
 
-def device_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn``: ``reps`` calls captured in one CUDA graph
-    and replayed between CUDA events, so no host time sits between them."""
-    fn()
+def graph_ms(calls) -> float:
+    """Mean device time of the calls in ``calls``: captured in this order in
+    one CUDA graph and replayed between CUDA events, so no host time sits
+    between them."""
+    for fn in calls:
+        fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(reps):
+        for fn in calls:
             fn()
     graph.replay()
     torch.cuda.synchronize()
@@ -94,7 +97,13 @@ def device_ms(fn, reps: int) -> float:
     graph.replay()
     t1.record()
     torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
+    return t0.elapsed_time(t1) / len(calls)
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` called ``reps`` times on the same inputs
+    (warm caches), timed by ``graph_ms``."""
+    return graph_ms([fn] * reps)
 
 
 def max_abs_err(got, want) -> int:
@@ -146,8 +155,150 @@ def search_len(cnt):
     return torch.ceil(torch.log2(cnt.double() + 1)) + 1
 
 
+COLD_BYTES = 64e6            # L2 is 50 MB: cold timings rotate through more
+
+
+def merge_rows(g, dev, R, raw, hi, live=None):
+    """(R, raw) sorted int64 keys in [0, hi), KEY_MAX from each row's
+    ``live`` count on (a stale tail, as node rows and ``_window`` rows
+    carry), and nonzero int32 values everywhere, the tail included."""
+    keys = sorted_rows(g, R, raw, hi, dev)
+    if live is not None:
+        dead = torch.arange(raw, device=dev)[None, :] >= torch.as_tensor(
+            live, device=dev)[:, None]
+        keys = torch.where(dead, KEY_MAX, keys)
+    vals = torch.randint(1, 2**31 - 1, (R, raw), generator=g, device=dev,
+                         dtype=torch.int32)
+    return keys, vals
+
+
+def flush_inputs(g, dev):
+    """The flush fan-out's merge inputs: 4 pivot windows of 4096 (many
+    duplicates, one all-KEY_MAX: an untouched child) into 4 node rows."""
+    R, n = 4, 4096
+    ak = sorted_rows(g, R, n, 2**20, dev)
+    av = torch.randint(0, 2**31 - 1, (R, n), generator=g, device=dev,
+                       dtype=torch.int32)
+    bk, bv, _ = table_rows(g, R, dev)
+    bk[1, : n] = ak[1]                                     # shared keys: a first
+    bk = torch.sort(bk, dim=1).values
+    ak[3] = KEY_MAX                                        # empty run identity
+    return ak, av, bk, bv
+
+
+def merge_edge_cases(g, dev):
+    """(label, a_keys, a_vals, b_keys, b_vals), rows (R, a_raw) / (R, b_raw):
+    the merge kernel's edge sweep."""
+    cases = []
+    # one key repeated over several whole tiles in both runs
+    ak, av = merge_rows(g, dev, 2, 3000, 5)
+    bk, bv = merge_rows(g, dev, 2, 5000, 5)
+    ak[:, 200:2700], bk[:, 100:4100] = 3, 3
+    cases.append(("one key over whole tiles", torch.sort(ak).values, av,
+                  torch.sort(bk).values, bv))
+    # tie groups across tile and 1024 boundaries of a, b and the output:
+    # a = base[:2100], b = base, one key over a[1000:1050] and b[990:1080]
+    # (output ~1990..2130), another over a[2040:2060] and b[2030:2090]
+    base, bv = merge_rows(g, dev, 3, 3100, 2**20)
+    _, av = merge_rows(g, dev, 3, 2100, 1)
+    ak, bk = base[:, :2100].clone(), base.clone()
+    for (lo, hi), (blo, bhi) in (((1000, 1050), (990, 1080)),
+                                 ((2040, 2060), (2030, 2090))):
+        ak[:, lo:hi] = base[:, lo:lo + 1]
+        bk[:, blo:bhi] = base[:, lo:lo + 1]
+    cases.append(("ties across 1024 boundaries", ak, av, bk, bv))
+    # raw lengths off every tile and 1024 multiple; R = 1, 2, 3, 5
+    for R, a_raw, b_raw in ((1, 1, 1537), (2, 1025, 1023), (3, 1025, 2049),
+                            (5, 513, 3073), (5, 4097, 21505)):
+        ak, av = merge_rows(g, dev, R, a_raw, 2**16)
+        bk, bv = merge_rows(g, dev, R, b_raw, 2**16)
+        cases.append((f"R={R} raw {a_raw}+{b_raw}", ak, av, bk, bv))
+    # all-KEY_MAX a-run, all-KEY_MAX b-run, both (values stale and nonzero)
+    for R, la, lb in ((3, 0, 1500), (2, 700, 0), (1, 0, 0)):
+        ak, av = merge_rows(g, dev, R, 1300, 2**31, live=[la] * R)
+        bk, bv = merge_rows(g, dev, R, 2500, 2**31, live=[lb] * R)
+        cases.append((f"KEY_MAX runs, live {la}+{lb}", ak, av, bk, bv))
+    # stale KEY_MAX tails in both runs, as _window and leaf rows carry them
+    ak, av = merge_rows(g, dev, 5, 4096, 2**31, live=[0, 1, 1000, 2048, 4096])
+    bk, bv = merge_rows(g, dev, 5, RUN_CAP, 2**31,
+                        live=[RUN_CAP, 0, 20000, 1023, 1025])
+    cases.append(("stale KEY_MAX tails", ak, av, bk, bv))
+    # random shapes
+    draw = lambda lo, hi: int(torch.randint(lo, hi, (1,), generator=g,
+                                            device=dev))
+    for c in range(50):
+        R = (1, 2, 3, 5)[draw(0, 4)]
+        a_raw, b_raw = draw(0, 6000), draw(1, 9000)
+        hi = (1, 4, 1000, 2**32 - 1)[draw(0, 4)]
+        la = [draw(0, a_raw + 1) if draw(0, 3) == 0 else a_raw for _ in range(R)]
+        lb = [draw(0, b_raw + 1) if draw(0, 3) == 0 else b_raw for _ in range(R)]
+        ak, av = merge_rows(g, dev, R, a_raw, hi, live=la)
+        bk, bv = merge_rows(g, dev, R, b_raw, hi, live=lb)
+        cases.append((f"random {c}: R={R} raw {a_raw}+{b_raw} keys < {hi}",
+                      ak, av, bk, bv))
+    return cases
+
+
+def merge_edge_sweep(g, dev) -> int:
+    """Both entry points at every tile size on the edge cases, bit for bit
+    against the plain version."""
+    from repro_torch.kernels import merge_sorted as ms
+
+    cases = merge_edge_cases(g, dev)
+    err = n_checks = 0
+    for label, ak, av, bk, bv in cases:
+        for tile in ms.TILES:
+            err = max(err, assert_exact(
+                f"merge_sorted_batch {label} tile {tile}",
+                partial(ms.merge_sorted_batch_cuda, tile=tile),
+                ms.merge_sorted_plain, ak, av, bk, bv))
+            n_checks += 1
+            if ak.shape[0] == 1:
+                err = max(err, assert_exact(
+                    f"merge_sorted {label} tile {tile}",
+                    partial(ms.merge_sorted_cuda, tile=tile),
+                    ms.merge_sorted_plain, ak[0], av[0], bk[0], bv[0]))
+                n_checks += 1
+    log(f"  merge edge sweep: {len(cases)} cases x tiles {ms.TILES}, "
+        f"{n_checks} kernel calls bit-exact vs plain")
+    return err
+
+
+def merge_timings(g, dev) -> None:
+    """The merge kernel at each tile size and both main-path shapes, warm
+    (20 calls on one input set) and cold (one call on each of a rotation of
+    input sets holding more than the L2 cache), and the launch floor: an
+    empty kernel replayed the same way."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import merge_sorted as ms
+
+    root = lambda ak, av, bk, bv: (ak[0].contiguous(), av[0].contiguous(),
+                                   bk[2].contiguous(), bv[2].contiguous())
+    shapes = {"merge_sorted_batch": (ms.merge_sorted_batch_cuda, lambda *t: t),
+              "merge_sorted": (ms.merge_sorted_cuda, root)}
+    for name, (fn, cut) in shapes.items():
+        one = cut(*flush_inputs(g, dev))
+        in_bytes = sum(t.nbytes for t in one)
+        sets = [one] + [cut(*flush_inputs(g, dev))
+                        for _ in range(int(COLD_BYTES // in_bytes))]
+        for tile in ms.TILES:
+            warm = device_ms(lambda: fn(*one, tile=tile), 20)
+            cold = graph_ms([lambda s=s: fn(*s, tile=tile) for s in sets])
+            mark = " (the wrappers' tile)" if tile == ms.CTA_TILE else ""
+            log(f"  {name} tile {tile}{mark}: warm {warm:.5f} ms, cold "
+                f"{cold:.5f} ms ({len(sets)} input sets, "
+                f"{len(sets) * in_bytes} input bytes)")
+        del sets, one
+    floor_warm = device_ms(lambda: _build.launch("empty_launch", dev), 20)
+    floor = graph_ms([lambda: _build.launch("empty_launch", dev)] * 200)
+    log(f"  launch floor (empty kernel in a CUDA graph): {floor_warm:.5f} ms "
+        f"over 20 launches, {floor:.5f} ms over 200")
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------------ phase 1
 def phase_kernels(dev) -> dict:
+    from repro_torch.kernels import _build
     from repro_torch.kernels import bloom_filter as bf
     from repro_torch.kernels import merge_sorted as ms
     from repro_torch.kernels import ops
@@ -179,21 +330,23 @@ def phase_kernels(dev) -> dict:
             f"{rows[name]['bound_ms']:.4f} ms ({rows[name]['bound_by']})")
 
     # ---- merge: flush fan-out (4 x (4096 + 21504)) and root merge --------
+    log("  merge kernel, nvcc -Xptxas -v: " + "; ".join(
+        " ".join(line.split()) for line in
+        _build.build_log("merge_sorted.cu").splitlines()
+        if "Compiling entry" in line or "registers" in line or "spill" in line))
     R, n = 4, 4096
-    ak = sorted_rows(g, R, n, 2**20, dev)                  # many duplicates
-    av = torch.randint(0, 2**31 - 1, (R, n), generator=g, device=dev,
-                       dtype=torch.int32)
-    bk, bv, _ = table_rows(g, R, dev)
-    bk[1, : n] = ak[1]                                     # shared keys: a first
-    bk = torch.sort(bk, dim=1).values
-    ak[3] = KEY_MAX                                        # empty run identity
-    err = assert_exact("merge_sorted_batch", ms.merge_sorted_batch_cuda,
-                       ms.merge_sorted_plain, ak, av, bk, bv)
+    ak, av, bk, bv = flush_inputs(g, dev)
+    err = 0
+    for tile in ms.TILES:
+        err = max(err, assert_exact(f"merge_sorted_batch tile {tile}",
+                                    partial(ms.merge_sorted_batch_cuda, tile=tile),
+                                    ms.merge_sorted_plain, ak, av, bk, bv))
     tk, _ = ms.merge_sorted_batch_cuda(ak, av, bk, bv)
     assert torch.equal(tk[3, :RUN_CAP], bk[3]), "empty a-run must leave b as is"
     out_n = R * (n + RUN_CAP)
     steps = float(np.log2(RUN_CAP)) + 1
     cat_k = torch.cat([ak, bk], dim=1)
+    err = max(err, merge_edge_sweep(g, dev))
     record("merge_sorted_batch", "merge_sorted.cu",
            "src/repro/kernels/merge_sorted.py:177", err,
            lambda: ms.merge_sorted_batch_cuda(ak, av, bk, bv),
@@ -202,16 +355,21 @@ def phase_kernels(dev) -> dict:
            nbytes=12 * (R * n + R * RUN_CAP + out_n), nops=out_n * steps * 6)
     a1, v1 = ak[0].contiguous(), av[0].contiguous()
     b1, w1 = bk[2].contiguous(), bv[2].contiguous()
-    err = assert_exact("merge_sorted", ms.merge_sorted_cuda,
-                       ms.merge_sorted_plain, a1, v1, b1, w1)
+    err = 0
+    for tile in ms.TILES:
+        err = max(err, assert_exact(f"merge_sorted tile {tile}",
+                                    partial(ms.merge_sorted_cuda, tile=tile),
+                                    ms.merge_sorted_plain, a1, v1, b1, w1))
     edge = [[torch.tensor(x, dtype=torch.int64 if i % 2 == 0 else torch.int32,
                           device=dev) for i, x in enumerate(case)]
             for case in (([5, 10, 20], [1, 2, 3], [10, 20, 30], [-1, -2, -3]),
                          ([7] * 5, [1] * 5, [7] * 3, [2] * 3),
                          ([KEY_MAX] * 3, [0] * 3, [1, 2, KEY_MAX], [4, 5, 6]))]
     for t in edge:               # tie-break, one-key runs, empty a-run
-        err = max(err, assert_exact("merge_sorted edge", ms.merge_sorted_cuda,
-                                    ms.merge_sorted_plain, *t))
+        for tile in ms.TILES:
+            err = max(err, assert_exact("merge_sorted edge",
+                                        partial(ms.merge_sorted_cuda, tile=tile),
+                                        ms.merge_sorted_plain, *t))
     _, tv = ms.merge_sorted_cuda(*edge[0])
     assert tv[:6].tolist() == [1, 2, -1, 3, -2, -3], "a-first tie-break"
     cat1 = torch.cat([a1, b1])
@@ -222,6 +380,7 @@ def phase_kernels(dev) -> dict:
            lambda: torch.sort(cat1, stable=True),
            nbytes=12 * 2 * (n + RUN_CAP), nops=(n + RUN_CAP) * steps * 6)
     del ak, av, bk, bv, cat_k
+    merge_timings(g, dev)
 
     # ---- descent: 4096-row table, 4096 queries ---------------------------
     T = 4096

@@ -5,13 +5,21 @@ behind both of its entry points: ``merge_sorted`` (one pair, the root merge
 of ``_insert_impl``) and ``merge_sorted_batch`` (R pairs in one launch, the
 child fan-out of ``_flush_impl``).
 
-What bounds it on the H100: each output element is one read of a key and a
-value and one write of each, ~24 bytes an element at 3.35 TB/s, plus a
-log2(n) binary search per element whose reads mostly hit L1/L2.  At the
-flush shapes (R <= 4 rows of 4096 + 21504 elements) the whole launch moves
-a few MB and is launch-bound.  The simple design leaves for later: one
-merge-path search per tile rather than per element, with the tile's spans
-of ``a`` and ``b`` staged in shared memory.
+What bounds it on the H100: bytes.  Each input element is read once and
+each output written once, 12 bytes each (int64 key, int32 value): 2.46 MB
+at the flush shape (R = 4 rows of 4096 + 21504), 0.73 us at 3.35 TB/s.
+
+The design works per tile of ``T`` outputs instead of per element, so a
+CTA waits on two dependent device-memory round trips rather than each
+element on a ~15-step binary search: each CTA narrows its tile's two
+merge-path splits by one warp-wide 32-ary search round, stages the spans
+of ``a`` and ``b`` that cover them in shared memory with ``cp.async``,
+finds each thread's split and merges 4 outputs a thread there, and writes
+the tile back through shared memory with 16-byte stores.  ``T`` is
+``CTA_TILE`` at both entry points, from a sweep on the card.
+``nvcc -Xptxas -v``: 46 / 42 / 42 registers, 9,256 / 12,328 / 18,472
+bytes of shared memory and no spills for T = 256 / 512 / 1024
+(``chip_smoke.py`` prints it).
 
 The JAX wrapper pads both runs to multiples of 1024 (KEY_MAX / 0), and the
 pads decide where a row's stale KEY_MAX tail lands; both versions here
@@ -25,6 +33,10 @@ from . import _build
 from .ref import KEY_MAX32, merge_sorted_ref
 
 TILE = 1024
+#: the kernel's tile sizes (outputs per CTA), and the one both entry points
+#: use (chosen by the sweep over TILES in chip_smoke.py)
+TILES = (256, 512, 1024)
+CTA_TILE = 512
 
 #: launches of the CUDA kernel per entry point (the plain version never
 #: counts); reset and read through ``ops``.
@@ -53,7 +65,9 @@ def merge_sorted_plain(a_keys, a_vals, b_keys, b_vals):
     return merge_sorted_ref(a_keys, a_vals, b_keys, b_vals)
 
 
-def _launch(a_keys, a_vals, b_keys, b_vals):
+def _launch(a_keys, a_vals, b_keys, b_vals, tile: int):
+    if tile not in TILES:
+        raise ValueError(f"merge: tile must be one of {TILES}, got {tile}")
     dev = a_keys.device
     _build.require("a_keys", a_keys, torch.int64, 2)
     _build.require("a_vals", a_vals, torch.int32, 2, dev)
@@ -71,20 +85,23 @@ def _launch(a_keys, a_vals, b_keys, b_vals):
         _build.launch("merge_sorted_launch", dev,
                       a_keys.data_ptr(), a_vals.data_ptr(),
                       b_keys.data_ptr(), b_vals.data_ptr(),
-                      out_k.data_ptr(), out_v.data_ptr(), R, a_raw, n, b_raw, m)
+                      out_k.data_ptr(), out_v.data_ptr(), R, a_raw, n, b_raw, m,
+                      tile)
     return out_k, out_v
 
 
-def merge_sorted_cuda(a_keys, a_vals, b_keys, b_vals):
+def merge_sorted_cuda(a_keys, a_vals, b_keys, b_vals, tile: int = CTA_TILE):
     """Kernel: (n,) + (m,) runs -> (n_pad + m_pad,) merged run."""
-    k, v = _launch(a_keys[None], a_vals[None], b_keys[None], b_vals[None])
+    k, v = _launch(a_keys[None], a_vals[None], b_keys[None], b_vals[None],
+                   tile)
     launches["merge_sorted"] += 1
     return k[0], v[0]
 
 
-def merge_sorted_batch_cuda(a_keys, a_vals, b_keys, b_vals):
+def merge_sorted_batch_cuda(a_keys, a_vals, b_keys, b_vals,
+                            tile: int = CTA_TILE):
     """Kernel: (R, n) + (R, m) runs -> (R, n_pad + m_pad); one launch."""
-    out = _launch(a_keys, a_vals, b_keys, b_vals)
+    out = _launch(a_keys, a_vals, b_keys, b_vals, tile)
     if a_keys.shape[0]:
         launches["merge_sorted_batch"] += 1
     return out

@@ -62,14 +62,44 @@ def _row(rng, n, cap):
 
 
 # ------------------------------------------------------------------- merge
-@pytest.mark.parametrize("n,m,cap", [(1, 1, 1), (100, 57, 64), (1024, 700, 2048),
-                                     (3000, 17, 17), (0, 300, 1024)])
-def test_merge_matches_jax_with_padding(rng, n, m, cap):
+def _case(*values, mode=None, id=None):
+    """A parametrised merge case; cases without a mode keep the ids of the
+    plain value tuples."""
+    return pytest.param(*values, mode, id=id or "-".join(map(str, values)))
+
+
+def _a_run(rng, n, cap, mode):
+    """n sorted keys and their values; in ``stale`` mode a row of ``cap``
+    whose KEY_MAX tail carries nonzero values, as ``_window`` rows do."""
+    if mode == "stale":
+        return _row(rng, n, cap)
+    return (_sorted_run(rng, n, dup=0.1),
+            rng.integers(0, 2**31, n).astype(np.int32))
+
+
+def _tie_across_1024(ak, bk):
+    """One key over a[1000:1050] and b[990:1080] (b's first keys made a's),
+    so its group crosses the 1024 boundary of a, of b and of the output."""
+    n = len(ak)
+    bk[:n] = ak
+    bk[n:] = np.maximum(bk[n:], ak[-1])
+    ak[1000:1050] = ak[1000]
+    bk[990:1080] = ak[1000]
+
+
+@pytest.mark.parametrize("n,m,cap,mode", [
+    _case(1, 1, 1), _case(100, 57, 64), _case(1024, 700, 2048),
+    _case(3000, 17, 17), _case(0, 300, 1024),
+    _case(2100, 2100, 3100, mode="tie1024", id="ties-across-1024"),
+    _case(1025, 1030, 1030, id="raw-just-above-1024"),
+    _case(2049, 1100, 2049, mode="stale", id="stale-value-tails")])
+def test_merge_matches_jax_with_padding(rng, n, m, cap, mode):
     """Whole padded output, KEY_MAX tail values included, equals Pallas."""
-    ak = _sorted_run(rng, n, dup=0.1)
-    av = rng.integers(0, 2**31, n).astype(np.int32)
+    ak, av = _a_run(rng, n, n + 500, mode)
     bk, bv = _row(rng, min(m, cap), cap)
-    if n:                      # shared keys exercise the a-first tie-break
+    if mode == "tie1024":
+        _tie_across_1024(ak, bk)
+    elif n:                    # shared keys exercise the a-first tie-break
         bk[: min(m, cap) // 2] = np.sort(rng.choice(ak, min(m, cap) // 2))
         bk = np.sort(bk)
     jk, jv = jops.merge_sorted(jnp.asarray(ak), jnp.asarray(av),
@@ -86,13 +116,24 @@ def test_merge_tiebreak_a_first():
     assert tv[:6].tolist() == [1, 2, -1, 3, -2, -3]
 
 
-@pytest.mark.parametrize("R,n,m", [(1, 64, 64), (3, 100, 1024), (4, 700, 1500)])
-def test_merge_batch_matches_jax(rng, R, n, m):
+@pytest.mark.parametrize("R,n,m,mode", [
+    _case(1, 64, 64), _case(3, 100, 1024), _case(4, 700, 1500),
+    _case(5, 1025, 1100, id="R5-raw-just-above-1024"),
+    _case(2, 2100, 3100, mode="tie1024", id="R2-ties-across-1024"),
+    _case(5, 300, 1100, mode="stale", id="R5-stale-value-tails")])
+def test_merge_batch_matches_jax(rng, R, n, m, mode):
     rows = [_row(rng, m - 13 * r, m) for r in range(R)]
-    ak = np.stack([_sorted_run(rng, n, dup=0.1) for _ in range(R)])
-    av = rng.integers(0, 2**31, (R, n)).astype(np.int32)
+    if mode == "stale":        # a-rows of width n, n - 7r live
+        ak, av = (np.stack(x) for x in zip(*[_row(rng, n - 7 * r, n)
+                                             for r in range(R)]))
+    else:
+        ak = np.stack([_sorted_run(rng, n, dup=0.1) for _ in range(R)])
+        av = rng.integers(0, 2**31, (R, n)).astype(np.int32)
     bk = np.stack([r[0] for r in rows])
     bv = np.stack([r[1] for r in rows])
+    if mode == "tie1024":
+        for r in range(R):
+            _tie_across_1024(ak[r], bk[r])
     jk, jv = jops.merge_sorted_batch(jnp.asarray(ak), jnp.asarray(av),
                                      jnp.asarray(bk), jnp.asarray(bv))
     tk, tv = tops.merge_sorted_batch(_k(ak), _v(av), _k(bk), _v(bv))
@@ -101,6 +142,13 @@ def test_merge_batch_matches_jax(rng, R, n, m):
     for r in range(R):         # row r == merge_sorted(a[r], b[r])
         sk, sv = tops.merge_sorted(_k(ak[r]), _v(av[r]), _k(bk[r]), _v(bv[r]))
         assert torch.equal(tk[r], sk) and torch.equal(tv[r], sv)
+
+
+def test_merge_kernel_rejects_unknown_tile():
+    """The kernel takes tiles of 256, 512 or 1024 outputs, nothing else."""
+    a = _k([1, 2, 3])
+    with pytest.raises(ValueError, match="tile"):
+        merge_sorted_cuda(a, _v([0, 0, 0]), a, _v([0, 0, 0]), tile=300)
 
 
 def test_merge_batch_empty_run_identity(rng):
