@@ -45,8 +45,8 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
-from functools import partial
 from pathlib import Path
 
 import numpy as np
@@ -156,6 +156,28 @@ def search_len(cnt):
 
 
 COLD_BYTES = 64e6            # L2 is 50 MB: cold timings rotate through more
+MERGE_T, MERGE_E, MERGE_W = 512, 4, 128   # MS_T, MS_E, MS_W of merge_sorted.cu
+
+
+def merge_ops(out_n: int) -> float:
+    """Integer ops of the merge kernel for out_n outputs (6 a compare-and-
+    step): per tile 2 x 32 device-memory probes; per thread a binary search
+    over the staged spans (at most T + 4W + 2 elements); per output one
+    merge step."""
+    tiles, threads = out_n / MERGE_T, out_n / MERGE_E
+    search = np.ceil(np.log2(MERGE_T + 4 * MERGE_W + 2))
+    return 6 * (tiles * 64 + threads * search + out_n)
+
+
+def ptxas_report(source: str, out_dir: str) -> subprocess.Popen:
+    """Start ``nvcc -Xptxas -v`` on one kernel source, with the build's
+    flags, for its registers, shared memory and spills."""
+    from repro_torch.kernels import _build
+
+    return subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas=-v", "-c",
+         str(_build.CSRC / source), "-o", str(Path(out_dir) / "report.o")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
 def merge_rows(g, dev, R, raw, hi, live=None):
@@ -240,35 +262,33 @@ def merge_edge_cases(g, dev):
 
 
 def merge_edge_sweep(g, dev) -> int:
-    """Both entry points at every tile size on the edge cases, bit for bit
-    against the plain version."""
+    """Both entry points on the edge cases, bit for bit against the plain
+    version."""
     from repro_torch.kernels import merge_sorted as ms
 
     cases = merge_edge_cases(g, dev)
     err = n_checks = 0
     for label, ak, av, bk, bv in cases:
-        for tile in ms.TILES:
-            err = max(err, assert_exact(
-                f"merge_sorted_batch {label} tile {tile}",
-                partial(ms.merge_sorted_batch_cuda, tile=tile),
-                ms.merge_sorted_plain, ak, av, bk, bv))
+        err = max(err, assert_exact(f"merge_sorted_batch {label}",
+                                    ms.merge_sorted_batch_cuda,
+                                    ms.merge_sorted_plain, ak, av, bk, bv))
+        n_checks += 1
+        if ak.shape[0] == 1:
+            err = max(err, assert_exact(f"merge_sorted {label}",
+                                        ms.merge_sorted_cuda,
+                                        ms.merge_sorted_plain,
+                                        ak[0], av[0], bk[0], bv[0]))
             n_checks += 1
-            if ak.shape[0] == 1:
-                err = max(err, assert_exact(
-                    f"merge_sorted {label} tile {tile}",
-                    partial(ms.merge_sorted_cuda, tile=tile),
-                    ms.merge_sorted_plain, ak[0], av[0], bk[0], bv[0]))
-                n_checks += 1
-    log(f"  merge edge sweep: {len(cases)} cases x tiles {ms.TILES}, "
-        f"{n_checks} kernel calls bit-exact vs plain")
+    log(f"  merge edge sweep: {len(cases)} cases, {n_checks} kernel calls "
+        f"bit-exact vs plain")
     return err
 
 
 def merge_timings(g, dev) -> None:
-    """The merge kernel at each tile size and both main-path shapes, warm
-    (20 calls on one input set) and cold (one call on each of a rotation of
-    input sets holding more than the L2 cache), and the launch floor: an
-    empty kernel replayed the same way."""
+    """The merge kernel at both main-path shapes, warm (20 calls on one
+    input set) and cold (one call on each of a rotation of input sets
+    holding more than the L2 cache), and the launch floor: an empty kernel
+    replayed the same way."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import merge_sorted as ms
 
@@ -281,13 +301,10 @@ def merge_timings(g, dev) -> None:
         in_bytes = sum(t.nbytes for t in one)
         sets = [one] + [cut(*flush_inputs(g, dev))
                         for _ in range(int(COLD_BYTES // in_bytes))]
-        for tile in ms.TILES:
-            warm = device_ms(lambda: fn(*one, tile=tile), 20)
-            cold = graph_ms([lambda s=s: fn(*s, tile=tile) for s in sets])
-            mark = " (the wrappers' tile)" if tile == ms.CTA_TILE else ""
-            log(f"  {name} tile {tile}{mark}: warm {warm:.5f} ms, cold "
-                f"{cold:.5f} ms ({len(sets)} input sets, "
-                f"{len(sets) * in_bytes} input bytes)")
+        warm = device_ms(lambda: fn(*one), 20)
+        cold = graph_ms([lambda s=s: fn(*s) for s in sets])
+        log(f"  {name}: warm {warm:.5f} ms, cold {cold:.5f} ms "
+            f"({len(sets)} input sets, {len(sets) * in_bytes} input bytes)")
         del sets, one
     floor_warm = device_ms(lambda: _build.launch("empty_launch", dev), 20)
     floor = graph_ms([lambda: _build.launch("empty_launch", dev)] * 200)
@@ -298,7 +315,6 @@ def merge_timings(g, dev) -> None:
 
 # ------------------------------------------------------------------ phase 1
 def phase_kernels(dev) -> dict:
-    from repro_torch.kernels import _build
     from repro_torch.kernels import bloom_filter as bf
     from repro_torch.kernels import merge_sorted as ms
     from repro_torch.kernels import ops
@@ -330,21 +346,13 @@ def phase_kernels(dev) -> dict:
             f"{rows[name]['bound_ms']:.4f} ms ({rows[name]['bound_by']})")
 
     # ---- merge: flush fan-out (4 x (4096 + 21504)) and root merge --------
-    log("  merge kernel, nvcc -Xptxas -v: " + "; ".join(
-        " ".join(line.split()) for line in
-        _build.build_log("merge_sorted.cu").splitlines()
-        if "Compiling entry" in line or "registers" in line or "spill" in line))
     R, n = 4, 4096
     ak, av, bk, bv = flush_inputs(g, dev)
-    err = 0
-    for tile in ms.TILES:
-        err = max(err, assert_exact(f"merge_sorted_batch tile {tile}",
-                                    partial(ms.merge_sorted_batch_cuda, tile=tile),
-                                    ms.merge_sorted_plain, ak, av, bk, bv))
+    err = assert_exact("merge_sorted_batch", ms.merge_sorted_batch_cuda,
+                       ms.merge_sorted_plain, ak, av, bk, bv)
     tk, _ = ms.merge_sorted_batch_cuda(ak, av, bk, bv)
     assert torch.equal(tk[3, :RUN_CAP], bk[3]), "empty a-run must leave b as is"
     out_n = R * (n + RUN_CAP)
-    steps = float(np.log2(RUN_CAP)) + 1
     cat_k = torch.cat([ak, bk], dim=1)
     err = max(err, merge_edge_sweep(g, dev))
     record("merge_sorted_batch", "merge_sorted.cu",
@@ -352,24 +360,19 @@ def phase_kernels(dev) -> dict:
            lambda: ms.merge_sorted_batch_cuda(ak, av, bk, bv),
            lambda: ms.merge_sorted_plain(ak, av, bk, bv),
            lambda: torch.sort(cat_k, dim=1, stable=True),
-           nbytes=12 * (R * n + R * RUN_CAP + out_n), nops=out_n * steps * 6)
+           nbytes=12 * (R * n + R * RUN_CAP + out_n), nops=merge_ops(out_n))
     a1, v1 = ak[0].contiguous(), av[0].contiguous()
     b1, w1 = bk[2].contiguous(), bv[2].contiguous()
-    err = 0
-    for tile in ms.TILES:
-        err = max(err, assert_exact(f"merge_sorted tile {tile}",
-                                    partial(ms.merge_sorted_cuda, tile=tile),
-                                    ms.merge_sorted_plain, a1, v1, b1, w1))
+    err = assert_exact("merge_sorted", ms.merge_sorted_cuda,
+                       ms.merge_sorted_plain, a1, v1, b1, w1)
     edge = [[torch.tensor(x, dtype=torch.int64 if i % 2 == 0 else torch.int32,
                           device=dev) for i, x in enumerate(case)]
             for case in (([5, 10, 20], [1, 2, 3], [10, 20, 30], [-1, -2, -3]),
                          ([7] * 5, [1] * 5, [7] * 3, [2] * 3),
                          ([KEY_MAX] * 3, [0] * 3, [1, 2, KEY_MAX], [4, 5, 6]))]
     for t in edge:               # tie-break, one-key runs, empty a-run
-        for tile in ms.TILES:
-            err = max(err, assert_exact("merge_sorted edge",
-                                        partial(ms.merge_sorted_cuda, tile=tile),
-                                        ms.merge_sorted_plain, *t))
+        err = max(err, assert_exact("merge_sorted edge", ms.merge_sorted_cuda,
+                                    ms.merge_sorted_plain, *t))
     _, tv = ms.merge_sorted_cuda(*edge[0])
     assert tv[:6].tolist() == [1, 2, -1, 3, -2, -3], "a-first tie-break"
     cat1 = torch.cat([a1, b1])
@@ -378,7 +381,7 @@ def phase_kernels(dev) -> dict:
            lambda: ms.merge_sorted_cuda(a1, v1, b1, w1),
            lambda: ms.merge_sorted_plain(a1, v1, b1, w1),
            lambda: torch.sort(cat1, stable=True),
-           nbytes=12 * 2 * (n + RUN_CAP), nops=(n + RUN_CAP) * steps * 6)
+           nbytes=12 * 2 * (n + RUN_CAP), nops=merge_ops(n + RUN_CAP))
     del ak, av, bk, bv, cat_k
     merge_timings(g, dev)
 
@@ -969,9 +972,17 @@ def main() -> int:
                          text=True, check=True, timeout=60).stdout.strip()
     log(f"device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
-    lib = _build.build()
-    _build.library()
+    with tempfile.TemporaryDirectory() as tmp:
+        report = ptxas_report("merge_sorted.cu", tmp)
+        lib = _build.build()
+        _build.library()
+        out, _ = report.communicate(timeout=600)
+    if report.returncode:
+        raise RuntimeError(f"nvcc -Xptxas -v merge_sorted.cu failed:\n{out}")
     log(f"kernels built in {time.perf_counter() - t0:.1f} s: {lib}")
+    log("merge kernel, nvcc -Xptxas -v: " + "; ".join(
+        " ".join(line.split()) for line in out.splitlines()
+        if "registers" in line or "spill" in line))
 
     log("phase 1: kernels vs their plain versions on the card")
     rows = phase_kernels(dev)

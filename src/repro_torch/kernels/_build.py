@@ -7,9 +7,7 @@ build takes seconds, not minutes.
 
 The library lands in ``build/repro_torch_kernels/`` at the repository
 root, at first use, under a name that carries the hash of the sources and
-flags: an edited source builds anew, an unchanged one is loaded as is.
-What ``nvcc -Xptxas -v`` reports for each kernel (registers, shared
-memory, spills) is kept beside it, source by source (``build_log``).  A
+flags: an edited source builds anew, an unchanged one is loaded as is.  A
 missing ``nvcc`` or a failed build raises; nothing falls back.
 """
 from __future__ import annotations
@@ -29,7 +27,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 CUDA_ROOTS = ("/usr/local/cuda",)      # searched after PATH and CUDA_HOME
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC")
 
 P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
@@ -38,7 +36,7 @@ P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 #: scales as ``c_float``.
 #: Each returns the ``cudaError_t`` of its launch.
 SIGNATURES = {
-    "merge_sorted_launch": (P, P, P, P, P, P, I, I, I, I, I, I, P),
+    "merge_sorted_launch": (P, P, P, P, P, P, I, I, I, I, I, P),
     "sorted_search_launch": (P, P, P, P, P, P, I, I, P),
     "sorted_search_rows_launch": (P, P, LL, P, P, P, P, P, P, I, P),
     "bloom_probe_launch": (P, P, P, I, I, I, P),
@@ -91,12 +89,11 @@ def build() -> Path:
             procs.append((src, subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-        failed, logs = [], []
+        failed = []
         for src, proc in procs:
             out, _ = proc.communicate()
             if proc.returncode:
                 failed.append(f"{src.name}:\n{out}")
-            logs.append(f"== {src.name}\n{out}")
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         tmp_lib = Path(tmp) / lib.name
@@ -105,18 +102,8 @@ def build() -> Path:
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
-        tmp_log = Path(tmp) / "build.log"
-        tmp_log.write_text("".join(logs))
-        os.replace(tmp_log, lib.with_suffix(".log"))
         os.replace(tmp_lib, lib)       # atomic: concurrent builds agree
     return lib
-
-
-def build_log(source: str) -> str:
-    """What ``nvcc`` printed for one source (e.g. ``"merge_sorted.cu"``) in
-    the build of the current library: ptxas's resource report per kernel."""
-    text = build().with_suffix(".log").read_text()
-    return text.split(f"== {source}\n", 1)[1].split("\n== ", 1)[0]
 
 
 @functools.cache

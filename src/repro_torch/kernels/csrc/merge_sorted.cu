@@ -14,9 +14,9 @@
 //
 // What bounds it: bytes.  Each input element is read once and each output
 // written once, 12 bytes each (an int64 key, an int32 value): 2.46 MB at the
-// flush shape (R = 4, n = 4096, m = 21504), 0.73 us at 3.35 TB/s.  An
-// earlier design gave each output element its own ~15-step binary search
-// over device memory, a chain of dependent L2/HBM loads per element.
+// flush shape (R = 4, n = 4096, m = 21504), 0.73 us at 3.35 TB/s.  What
+// keeps it from that is latency: a merge-path search per output element is
+// a chain of ~15 dependent L2/HBM loads for every element.
 //
 // The design cuts that chain to two dependent device-memory round trips
 // per tile.  CTA (t, r) owns the T outputs [t*T, (t+1)*T) of row r:
@@ -36,14 +36,15 @@
 //     per-element search does.
 //  4. The merged tile goes back through shared memory and out with 16-byte
 //     stores, contiguous across the warp.
-// One launch per call, no second pass.  T is 256, 512 or 1024 (a divisor of
-// 1024, so of n + m), chosen by the wrapper.
+// One launch per call, no second pass.  T = MS_T = 512 outputs a CTA, from
+// a sweep of T = 256 / 512 / 1024 on the card (PERF.md): 512 was within 4 %
+// of the fastest at both main-path shapes.
 //
-// nvcc -Xptxas -v (sm_90a, -O3; chip_smoke.py prints it from the build):
-// 46 / 42 / 42 registers, 9,256 / 12,328 / 18,472 bytes of shared memory
-// and no spills (0-byte stack frame) for T = 256 / 512 / 1024.
+// nvcc -Xptxas -v (sm_90a, -O3; chip_smoke.py prints it): 42 registers,
+// 12,328 bytes of shared memory, no spills (0-byte stack frame).
 #include "common.cuh"
 
+#define MS_T 512               // outputs per CTA
 #define MS_E 4                 // outputs per thread
 #define MS_W 128               // device-memory search stops at this width
 
@@ -94,12 +95,12 @@ __device__ void ms_corank_device(const long long* __restrict__ ak, int a_raw,
     }
 }
 
-template <int T>
-__global__ void __launch_bounds__(T / MS_E)
+__global__ void __launch_bounds__(MS_T / MS_E)
 merge_tile_kernel(const long long* __restrict__ ak, const int* __restrict__ av,
                   const long long* __restrict__ bk, const int* __restrict__ bv,
                   long long* __restrict__ ok, int* __restrict__ ov,
                   int a_raw, int n, int b_raw, int m) {
+    constexpr int T = MS_T;
     // a[a_lo .. a_hi] then b[b_lo .. b_hi] (at most T + 4 * MS_W + 2
     // elements); later the merged tile
     __shared__ __align__(16) long long sk[T + 4 * MS_W + 2];
@@ -196,38 +197,19 @@ merge_tile_kernel(const long long* __restrict__ ak, const int* __restrict__ av,
         ovv[x] = reinterpret_cast<const int4*>(sv)[x];
 }
 
-template <int T>
-static void ms_launch(const long long* ak, const int* av, const long long* bk,
-                      const int* bv, long long* ok, int* ov, int R, int a_raw,
-                      int n, int b_raw, int m, cudaStream_t stream) {
-    dim3 grid((n + m) / T, R);
-    merge_tile_kernel<T><<<grid, T / MS_E, 0, stream>>>(ak, av, bk, bv, ok, ov,
-                                                        a_raw, n, b_raw, m);
-}
-
 // a: (R, a_raw) read as (R, n); b: (R, b_raw) read as (R, m);
 // out: (R, n + m), 16-byte aligned.  Contiguous rows; n and m multiples of
-// 1024; tile 256, 512 or 1024.
+// 1024.
 extern "C" int merge_sorted_launch(const long long* ak, const int* av,
                                    const long long* bk, const int* bv,
                                    long long* ok, int* ov, int R, int a_raw,
-                                   int n, int b_raw, int m, int tile,
+                                   int n, int b_raw, int m,
                                    cudaStream_t stream) {
     if (n % 1024 || m % 1024 || a_raw > n || b_raw > m ||
         (reinterpret_cast<uintptr_t>(ok) | reinterpret_cast<uintptr_t>(ov)) % 16)
         return (int)cudaErrorInvalidValue;
-    switch (tile) {
-        case 256:
-            ms_launch<256>(ak, av, bk, bv, ok, ov, R, a_raw, n, b_raw, m, stream);
-            break;
-        case 512:
-            ms_launch<512>(ak, av, bk, bv, ok, ov, R, a_raw, n, b_raw, m, stream);
-            break;
-        case 1024:
-            ms_launch<1024>(ak, av, bk, bv, ok, ov, R, a_raw, n, b_raw, m, stream);
-            break;
-        default:
-            return (int)cudaErrorInvalidValue;
-    }
+    dim3 grid((n + m) / MS_T, R);
+    merge_tile_kernel<<<grid, MS_T / MS_E, 0, stream>>>(ak, av, bk, bv, ok, ov,
+                                                        a_raw, n, b_raw, m);
     return (int)cudaGetLastError();
 }

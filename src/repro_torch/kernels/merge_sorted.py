@@ -15,11 +15,10 @@ element on a ~15-step binary search: each CTA narrows its tile's two
 merge-path splits by one warp-wide 32-ary search round, stages the spans
 of ``a`` and ``b`` that cover them in shared memory with ``cp.async``,
 finds each thread's split and merges 4 outputs a thread there, and writes
-the tile back through shared memory with 16-byte stores.  ``T`` is
-``CTA_TILE`` at both entry points, from a sweep on the card.
-``nvcc -Xptxas -v``: 46 / 42 / 42 registers, 9,256 / 12,328 / 18,472
-bytes of shared memory and no spills for T = 256 / 512 / 1024
-(``chip_smoke.py`` prints it).
+the tile back through shared memory with 16-byte stores.  ``T`` = 512 at
+both entry points, from a sweep of 256 / 512 / 1024 on the card.
+``nvcc -Xptxas -v``: 42 registers, 12,328 bytes of shared memory, no
+spills (``chip_smoke.py`` prints it).
 
 The JAX wrapper pads both runs to multiples of 1024 (KEY_MAX / 0), and the
 pads decide where a row's stale KEY_MAX tail lands; both versions here
@@ -33,10 +32,6 @@ from . import _build
 from .ref import KEY_MAX32, merge_sorted_ref
 
 TILE = 1024
-#: the kernel's tile sizes (outputs per CTA), and the one both entry points
-#: use (chosen by the sweep over TILES in chip_smoke.py)
-TILES = (256, 512, 1024)
-CTA_TILE = 512
 
 #: launches of the CUDA kernel per entry point (the plain version never
 #: counts); reset and read through ``ops``.
@@ -65,9 +60,7 @@ def merge_sorted_plain(a_keys, a_vals, b_keys, b_vals):
     return merge_sorted_ref(a_keys, a_vals, b_keys, b_vals)
 
 
-def _launch(a_keys, a_vals, b_keys, b_vals, tile: int):
-    if tile not in TILES:
-        raise ValueError(f"merge: tile must be one of {TILES}, got {tile}")
+def _launch(a_keys, a_vals, b_keys, b_vals):
     dev = a_keys.device
     _build.require("a_keys", a_keys, torch.int64, 2)
     _build.require("a_vals", a_vals, torch.int32, 2, dev)
@@ -85,23 +78,20 @@ def _launch(a_keys, a_vals, b_keys, b_vals, tile: int):
         _build.launch("merge_sorted_launch", dev,
                       a_keys.data_ptr(), a_vals.data_ptr(),
                       b_keys.data_ptr(), b_vals.data_ptr(),
-                      out_k.data_ptr(), out_v.data_ptr(), R, a_raw, n, b_raw, m,
-                      tile)
+                      out_k.data_ptr(), out_v.data_ptr(), R, a_raw, n, b_raw, m)
     return out_k, out_v
 
 
-def merge_sorted_cuda(a_keys, a_vals, b_keys, b_vals, tile: int = CTA_TILE):
+def merge_sorted_cuda(a_keys, a_vals, b_keys, b_vals):
     """Kernel: (n,) + (m,) runs -> (n_pad + m_pad,) merged run."""
-    k, v = _launch(a_keys[None], a_vals[None], b_keys[None], b_vals[None],
-                   tile)
+    k, v = _launch(a_keys[None], a_vals[None], b_keys[None], b_vals[None])
     launches["merge_sorted"] += 1
     return k[0], v[0]
 
 
-def merge_sorted_batch_cuda(a_keys, a_vals, b_keys, b_vals,
-                            tile: int = CTA_TILE):
+def merge_sorted_batch_cuda(a_keys, a_vals, b_keys, b_vals):
     """Kernel: (R, n) + (R, m) runs -> (R, n_pad + m_pad); one launch."""
-    out = _launch(a_keys, a_vals, b_keys, b_vals, tile)
+    out = _launch(a_keys, a_vals, b_keys, b_vals)
     if a_keys.shape[0]:
         launches["merge_sorted_batch"] += 1
     return out

@@ -120,9 +120,11 @@ def test_merge_tiebreak_a_first():
     _case(1, 64, 64), _case(3, 100, 1024), _case(4, 700, 1500),
     _case(5, 1025, 1100, id="R5-raw-just-above-1024"),
     _case(2, 2100, 3100, mode="tie1024", id="R2-ties-across-1024"),
-    _case(5, 300, 1100, mode="stale", id="R5-stale-value-tails")])
+    _case(5, 300, 1100, mode="stale", id="R5-stale-value-tails"),
+    _case(3, 700, 1100, mode="b-empty", id="R3-all-KEY_MAX-b-runs")])
 def test_merge_batch_matches_jax(rng, R, n, m, mode):
-    rows = [_row(rng, m - 13 * r, m) for r in range(R)]
+    rows = [_row(rng, 0 if mode == "b-empty" else m - 13 * r, m)
+            for r in range(R)]
     if mode == "stale":        # a-rows of width n, n - 7r live
         ak, av = (np.stack(x) for x in zip(*[_row(rng, n - 7 * r, n)
                                              for r in range(R)]))
@@ -142,13 +144,6 @@ def test_merge_batch_matches_jax(rng, R, n, m, mode):
     for r in range(R):         # row r == merge_sorted(a[r], b[r])
         sk, sv = tops.merge_sorted(_k(ak[r]), _v(av[r]), _k(bk[r]), _v(bv[r]))
         assert torch.equal(tk[r], sk) and torch.equal(tv[r], sv)
-
-
-def test_merge_kernel_rejects_unknown_tile():
-    """The kernel takes tiles of 256, 512 or 1024 outputs, nothing else."""
-    a = _k([1, 2, 3])
-    with pytest.raises(ValueError, match="tile"):
-        merge_sorted_cuda(a, _v([0, 0, 0]), a, _v([0, 0, 0]), tile=300)
 
 
 def test_merge_batch_empty_run_identity(rng):
