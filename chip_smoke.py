@@ -13,7 +13,12 @@ network)::
    tests: the integer kernels bit for bit, ``paged_attention`` to the JAX
    kernel tests' tolerances (fp32 3e-5, bf16 3e-2).  Times each (CUDA
    graph replay between CUDA events), its plain version and, where one
-   PyTorch call computes the same function, that call.
+   PyTorch call computes the same function, that call.  The merge,
+   ``sorted_search_rows`` and ``paged_attention`` also run an edge sweep
+   and are timed cold (inputs out of L2) at their path's shapes; the last
+   two are swept over the constant each fixes in its source (``SS_W``,
+   ``PA_SPLIT_CTAS``), each value built as a library of its own beside
+   the build, and the ``nvcc -Xptxas -v`` report of all three is printed.
 2. Drives the NB-tree path through the engine a user calls:
    ``TorchNBTreeEngine(f=4, sigma=4096)`` on ``cuda``; a YCSB load phase of
    ``preload = 2^24`` keys over ``key_space = 2^26``, the paper's
@@ -41,6 +46,8 @@ just after; every kernel must have launched on its own path.  Prints a
 from __future__ import annotations
 
 import argparse
+import contextlib
+import ctypes
 import dataclasses
 import json
 import subprocess
@@ -169,6 +176,9 @@ def merge_ops(out_n: int) -> float:
     return 6 * (tiles * 64 + threads * search + out_n)
 
 
+PTXAS_SOURCES = ("merge_sorted.cu", "sorted_search.cu", "paged_attention.cu")
+
+
 def ptxas_report(source: str, out_dir: str) -> subprocess.Popen:
     """Start ``nvcc -Xptxas -v`` on one kernel source, with the build's
     flags, for its registers, shared memory and spills."""
@@ -176,7 +186,8 @@ def ptxas_report(source: str, out_dir: str) -> subprocess.Popen:
 
     return subprocess.Popen(
         [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas=-v", "-c",
-         str(_build.CSRC / source), "-o", str(Path(out_dir) / "report.o")],
+         str(_build.CSRC / source),
+         "-o", str(Path(out_dir) / f"{Path(source).stem}_report.o")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
@@ -313,8 +324,329 @@ def merge_timings(g, dev) -> None:
     torch.cuda.empty_cache()
 
 
+SEARCH_W = (8, 16, 32)                        # SS_W values the sweep builds
+PA_SPLIT_CTAS = (32, 64, 128, 160, 256, 384)   # PA_SPLIT_CTAS values
+
+
+def variant_builds(out_dir: str) -> list:
+    """Start one ``nvcc`` for each swept value of a kernel's tile constant:
+    the kernel's source and ``errors.cu`` with ``-D<constant>=<value>`` into
+    a library of their own.  Returns (source, constant, value, path, proc)."""
+    from repro_torch.kernels import _build
+
+    jobs = [("sorted_search.cu", "SS_W", w) for w in SEARCH_W]
+    jobs += [("paged_attention.cu", "PA_SPLIT_CTAS", c) for c in PA_SPLIT_CTAS]
+    out = []
+    for source, macro, value in jobs:
+        so = Path(out_dir) / f"{Path(source).stem}_{value}.so"
+        out.append((source, macro, value, so, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, f"-D{macro}={value}",
+             "-shared", str(_build.CSRC / source),
+             str(_build.CSRC / "errors.cu"), "-o", str(so)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    return out
+
+
+def load_variant(so: Path) -> ctypes.CDLL:
+    from repro_torch.kernels import _build
+
+    lib = ctypes.CDLL(str(so))
+    for name, args in _build.SIGNATURES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = list(args)
+            fn.restype = ctypes.c_int
+    lib.repro_torch_error_string.argtypes = [ctypes.c_int]
+    lib.repro_torch_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@contextlib.contextmanager
+def kernel_library(lib):
+    """The wrappers launch from ``lib`` (a swept variant) inside the block."""
+    from repro_torch.kernels import _build
+
+    real = _build.library
+    _build.library = lambda: lib
+    try:
+        yield
+    finally:
+        _build.library = real
+
+
+# ------------------------------------------------------------ search sweeps
+def search_edge_cases(g, dev):
+    """(label, table_keys, table_vals, rows, counts, q): the search kernel's
+    edge sweep, on rows of RUN_CAP slots."""
+    R = 8
+    keys = sorted_rows(g, R, RUN_CAP, 2**31 - 200, dev) + 100   # keys >= 100
+    keys[1] = 777                                # one key over the whole row
+    keys[2, 1000:15000] = keys[2, 1000]          # one key over many windows
+    keys[3, :] = torch.sort(keys[3] % 50).values # many short tie groups
+    keys = torch.sort(keys, dim=1).values
+    vals = torch.randint(0, 2**31 - 1, (R, RUN_CAP), generator=g, device=dev,
+                         dtype=torch.int32)
+    i32 = lambda x: torch.as_tensor(x, device=dev, dtype=torch.int32)
+    i64 = lambda x: torch.as_tensor(x, device=dev, dtype=torch.int64)
+    cases = []
+    counts = sorted({0, 1, RUN_CAP - 1, RUN_CAP}
+                    | {w + d for w in SEARCH_W for d in (-1, 0, 1)})
+    for c in counts:        # every row, 4 queries each: the last live key,
+        rows = torch.arange(R, device=dev,       # one below, one above, KEY_MAX
+                            dtype=torch.int32).repeat_interleave(4)
+        cnt = torch.full_like(rows, c)
+        live = keys.clone()
+        live[:, c:] = KEY_MAX                     # a stale KEY_MAX tail
+        last = live[rows.long(), max(c - 1, 0)]
+        kind = torch.arange(rows.numel(), device=dev) % 4
+        q = torch.where(kind == 0, last, torch.where(
+            kind == 1, last - 1, torch.where(kind == 2, last + 1, KEY_MAX)))
+        cases.append((f"count {c}", live, vals, rows, cnt,
+                      q.clamp(0, KEY_MAX).contiguous()))
+    rows = i32([1, 1, 1, 2, 2, 2, 3, 3, 3, 0, 0, 0, 0])
+    cnt = torch.full_like(rows, RUN_CAP)
+    q = i64([777, 776, 778, int(keys[2, 1000]), int(keys[2, 1000]) - 1,
+             int(keys[2, 1000]) + 1, 0, 25, 49, 0, 99,   # below every key
+             2**31 + 5, KEY_MAX])                        # above every key
+    cases.append(("duplicates over probe windows; below / above every key",
+                  keys, vals, rows, cnt, q))
+    for Q in (1, 37, 255, 257):                   # group counts off a CTA's
+        rows = torch.randint(0, R, (Q,), generator=g, device=dev,
+                             dtype=torch.int32)
+        cnt = torch.randint(0, RUN_CAP + 1, (Q,), generator=g, device=dev,
+                            dtype=torch.int32)
+        pick = torch.minimum(torch.randint(0, RUN_CAP, (Q,), generator=g,
+                                           device=dev), cnt.long().clamp(min=1) - 1)
+        q = keys[rows.long(), pick]
+        cases.append((f"Q = {Q}", keys, vals, rows, cnt, q))
+    return cases
+
+
+def search_edge_sweep(g, dev) -> tuple:
+    """Both entry points on the edge cases, bit for bit against the plain
+    version; the one-run form on prefixes of the rows (KEY_MAX tails
+    included)."""
+    from repro_torch.kernels import sorted_search as ss
+
+    err = n_checks = 0
+    for label, keys, vals, rows, cnt, q in search_edge_cases(g, dev):
+        err = max(err, assert_exact(f"sorted_search_rows {label}",
+                                    ss.sorted_search_rows_cuda,
+                                    ss.sorted_search_rows_plain, keys, vals,
+                                    rows, cnt, q))
+        found, _, _ = ss.sorted_search_rows_cuda(keys, vals, rows, cnt, q)
+        assert not found[q == KEY_MAX].any(), f"{label}: KEY_MAX matched"
+        n_checks += 1
+        r, n = int(rows[0]), int(cnt[0])
+        run, rv = keys[r, : max(n, 1)].contiguous(), vals[r, : max(n, 1)].contiguous()
+        err = max(err, assert_exact(f"sorted_search {label}",
+                                    ss.sorted_search_cuda,
+                                    ss.sorted_search_plain, run, rv, q))
+        n_checks += 1
+    return err, n_checks
+
+
+def search_sets(g, dev, tkeys, tcounts, shape: str, n_sets: int) -> list:
+    """Query sets (rows, counts, q) of one main-path shape:
+    ``4096``: 4096 queries, one per row of the table, 40 % misses (the
+    shape phase 1 has always timed); ``205``: a point-read batch of
+    insert-heavy (5 % of
+    4096) on random rows; ``144``: the page index's block-table read, 144
+    queries on one row of 144 live keys.  Each set draws anew."""
+    T = tkeys.shape[0]
+    sets = []
+    for _ in range(n_sets):
+        if shape == "144":
+            r = int(torch.randint(0, T, (1,), generator=g, device=dev))
+            while int(tcounts[r]) < 144:
+                r = (r + 1) % T
+            rows = torch.full((144,), r, dtype=torch.int32, device=dev)
+            cnt = torch.full_like(rows, 144)
+            q = tkeys[r, torch.randperm(144, generator=g, device=dev)]
+        else:
+            Q = int(shape)
+            rows = (torch.randperm(T, generator=g, device=dev)[:Q]
+                    .to(torch.int32))
+            cnt = tcounts[rows.long()]
+            pick = torch.randint(0, RUN_CAP, (Q,), generator=g, device=dev)
+            q = tkeys[rows.long(),
+                      torch.minimum(pick, (cnt.long() - 1).clamp(min=0))]
+            miss = torch.rand(Q, generator=g, device=dev) < 0.4
+            q = torch.where(miss, torch.randint(0, 2**32 - 1, (Q,), generator=g,
+                                                device=dev), q)
+        sets.append((rows, cnt, q))
+    return sets
+
+
+def search_bound_ms(cnt) -> float:
+    """Phase 1's bound of one search launch: 8 bytes per key a binary
+    search reads, plus each query's inputs and outputs."""
+    reads = search_len(cnt).sum().item()
+    nbytes = 8 * reads + cnt.numel() * (4 + 8 + 4 + 4 + 1 + 4 + 4)
+    return max(nbytes / PEAK_BYTES_S, reads * 6 / PEAK_OPS_S) * 1e3
+
+
+def search_timings(g, dev, tkeys, tvals, tcounts, label: str) -> dict:
+    """``sorted_search_rows`` at the three shapes, warm (20 calls on one
+    set) and cold (one call on each of 64 sets: leaf probes of different
+    rows, or different rows, each call), each set checked bit for bit."""
+    from repro_torch.kernels import sorted_search as ss
+
+    out = {}
+    for shape in ("4096", "205", "144"):
+        sets = search_sets(g, dev, tkeys, tcounts, shape, 64)
+        for rows, cnt, q in sets[:4]:
+            assert_exact(f"sorted_search_rows {label} Q={shape}",
+                         ss.sorted_search_rows_cuda,
+                         ss.sorted_search_rows_plain, tkeys, tvals, rows, cnt, q)
+        rows, cnt, q = sets[0]
+        warm = device_ms(lambda: ss.sorted_search_rows_cuda(
+            tkeys, tvals, rows, cnt, q), 20)
+        cold = graph_ms([lambda s=s: ss.sorted_search_rows_cuda(tkeys, tvals, *s)
+                         for s in sets])
+        out[shape] = (warm, cold, search_bound_ms(cnt))
+        log(f"  sorted_search_rows {label} Q={shape}: warm {warm:.5f} ms, cold "
+            f"{cold:.5f} ms, bound {out[shape][2]:.6f} ms")
+    return out
+
+
+# --------------------------------------------------------- attention sweeps
+def pa_inputs(g, dev, B, KVH, G, D, S, P, MP, qdt, kvdt, lens=None):
+    randn = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    if B * MP < P:                           # distinct pages, none the null one
+        bt = (torch.randperm(P - 1, generator=g, device=dev)[: B * MP]
+              + 1).reshape(B, MP)
+    else:
+        bt = torch.randint(0, P, (B, MP), generator=g, device=dev)
+    if lens is None:
+        lens = torch.randint(1, MP * S + 1, (B,), generator=g, device=dev)
+    return (randn(B, KVH, G, D).to(qdt), randn(KVH, P, S, D).to(kvdt),
+            randn(KVH, P, S, D).to(kvdt), bt.to(torch.int32),
+            torch.as_tensor(lens, device=dev).to(torch.int32))
+
+
+def pa_check(label, tol, args):
+    from repro_torch.kernels import paged_attention as pa
+
+    got = pa.paged_attention_cuda(*args)
+    want = pa.paged_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == args[0].dtype
+    torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                               rtol=tol, msg=lambda m: f"{label}: {m}")
+    return float((got.float() - want.float()).abs().max())
+
+
+def pa_splits(B, KVH, MP) -> int:
+    from repro_torch.kernels import _build
+
+    return _build.library().paged_attention_splits(B, KVH, MP)
+
+
+def pa_edge_sweep(g, dev) -> tuple:
+    """The kernel tests' shapes and the split-K edges, fp32 within 3e-5 and
+    bf16 within 3e-2 of the plain version; a misaligned slice and an
+    out-of-range page id raise.  Returns (max err fp32, max err bf16, cases,
+    the cases' (MP, splits))."""
+    from repro_torch.kernels import paged_attention as pa
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    err = {f32: 0.0, bf16: 0.0}
+    splits = []
+    cases = [(2, 1, 8, 128, 16, 4, None), (4, 2, 8, 128, 16, 6, None),
+             (1, 4, 4, 64, 8, 3, None), (3, 2, 16, 256, 32, 2, None),
+             (4, 2, 2, 32, 8, 1, None),                    # MP = 1
+             (1, 1, 4, 128, 8, 3, [24]),                   # splits capped at MP
+             (4, 8, 4, 128, 8, 7, [0, 1, 56, 9]),          # MP off the split
+             (4, 8, 1, 128, 8, 36, [0, 1, 288, 100]),      # G = 1
+             (4, 8, 8, 128, 8, 36, [288, 1, 0, 200]),      # G = 8
+             (2, 4, 4, 128, 8, 13, [104, 3])]
+    for B, KVH, G, D, S, MP, lens in cases:
+        for qdt, kvdt in ((f32, f32), (bf16, bf16), (bf16, f32)):
+            tol = 3e-5 if qdt == kvdt == f32 else 3e-2
+            args = pa_inputs(g, dev, B, KVH, G, D, S, MP * 4 + 1, MP, qdt,
+                             kvdt, lens=lens)
+            e = pa_check(f"paged_attention {B, KVH, G, D, S, MP} {qdt}/{kvdt} "
+                         f"lens {lens}", tol, args)
+            err[f32 if tol == 3e-5 else bf16] = max(err[f32 if tol == 3e-5 else bf16], e)
+        splits.append((MP, pa_splits(B, KVH, MP)))
+    # seq_len 0: the mean of V over every gathered slot, whatever the split
+    args0 = pa_inputs(g, dev, 3, 2, 4, 64, 8, 12, 3, f32, f32, lens=[0, 5, 24])
+    err[f32] = max(err[f32], pa_check("paged_attention seq_len 0", 3e-5, args0))
+    mean_v = args0[2][:, args0[3][0].long()].reshape(2, -1, 64).mean(dim=1)
+    got0 = pa.paged_attention_cuda(*args0)[0]
+    torch.testing.assert_close(got0, mean_v[:, None].expand_as(got0),
+                               atol=3e-5, rtol=3e-5)
+    bad = args0[3].clone()
+    bad[1, 2] = 12
+    try:
+        pa.paged_attention_cuda(*args0[:3], bad, args0[4])
+        raise AssertionError("an out-of-range page id must raise")
+    except IndexError:
+        pass
+    n = args0[1].numel()
+    flat = torch.empty(n + 4, device=dev)[1:n + 1].view(args0[1].shape)
+    try:
+        pa.paged_attention_cuda(args0[0], flat, args0[2], *args0[3:])
+        raise AssertionError("a misaligned page slice must raise")
+    except ValueError:
+        pass
+    return err[f32], err[bf16], len(cases) * 3 + 1, splits
+
+
+SERVE_PA = dict(B=4, KVH=8, G=4, D=128, S=8, MP=36)
+
+
+def pa_serving_sets(g, dev, layers: int = 8) -> list:
+    """Inputs at the serving shapes (bf16 q over fp32 pages), one set per
+    layer of an (L, KVH, P, S, D) cache of P = 160 pages: 8 layers hold
+    84 MB of pages, more than L2, and each call reads a layer's slice as
+    the decoder does, with one block table for every layer (its range
+    check then runs once, outside the CUDA graph)."""
+    c = SERVE_PA
+    P = c["B"] * c["MP"] + 16
+    shape = (layers, c["KVH"], P, c["S"], c["D"])
+    kc = torch.randn(shape, generator=g, device=dev)
+    vc = torch.randn(shape, generator=g, device=dev)
+    q, _, _, bt, lens = pa_inputs(g, dev, c["B"], c["KVH"], c["G"], c["D"],
+                                  c["S"], P, c["MP"], torch.bfloat16,
+                                  torch.float32)
+    return [(q, kc[layer], vc[layer], bt, lens) for layer in range(layers)]
+
+
+def pa_timings(sets, label: str) -> tuple:
+    """``paged_attention`` at the serving shapes: every set checked against
+    the plain version (bf16 3e-2), then warm (20 calls on one set) and cold
+    (one call on each layer's set)."""
+    from repro_torch.kernels import paged_attention as pa
+
+    for i, args in enumerate(sets):
+        pa_check(f"paged_attention {label} layer {i}", 3e-2, args)
+    warm = device_ms(lambda: pa.paged_attention_cuda(*sets[0]), 20)
+    cold = graph_ms([lambda s=s: pa.paged_attention_cuda(*s) for s in sets] * 3)
+    log(f"  paged_attention {label}: warm {warm:.5f} ms, cold {cold:.5f} ms")
+    return warm, cold
+
+
+def path_shape_timings(dev) -> None:
+    """``sorted_search_rows`` and ``paged_attention`` timed warm and cold at
+    their path's shapes, through whatever ``repro_torch`` is importable:
+    run against a checkout of an earlier commit (its ``src`` first on
+    ``sys.path``), it times that commit's kernels at the same shapes, in
+    the same call as this one's."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    tkeys, tvals, tcounts = table_rows(g, 4096, dev)
+    search_timings(g, dev, tkeys, tvals, tcounts, "(this package)")
+    del tkeys, tvals
+    pa_timings(pa_serving_sets(g, dev), "(this package)")
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------------ phase 1
-def phase_kernels(dev) -> dict:
+def phase_kernels(dev, variants: dict) -> dict:
+    """Every kernel against its plain version; ``variants`` maps "search"
+    and "attention" to {swept value: library} for the two sweeps."""
     from repro_torch.kernels import bloom_filter as bf
     from repro_torch.kernels import merge_sorted as ms
     from repro_torch.kernels import ops
@@ -405,6 +737,18 @@ def phase_kernels(dev) -> dict:
                        cnt_q, q)
     found, _, _ = ss.sorted_search_rows_cuda(tkeys, tvals, rows_q, cnt_q, q)
     assert not found[:3].any(), "KEY_MAX queries never match"
+    e, n_checks = search_edge_sweep(g, dev)
+    err = max(err, e)
+    log(f"  search edge sweep: {n_checks} kernel calls bit-exact vs plain "
+        f"(counts 0, 1, W-1, W, W+1 for W in {SEARCH_W}, RUN_CAP - 1, RUN_CAP; "
+        f"duplicate runs; queries below / above every key, = the last live "
+        f"key, KEY_MAX; Q = 1, 37, 255, 257)")
+    search_timings(g, dev, tkeys, tvals, tcounts, "(this build)")
+    for w, lib in variants["search"].items():
+        with kernel_library(lib):
+            e, _ = search_edge_sweep(g, dev)
+            err = max(err, e)
+            search_timings(g, dev, tkeys, tvals, tcounts, f"SS_W={w}")
     q_by_row = torch.empty_like(q)
     q_by_row[rows_q.long()] = q
     q_by_row = q_by_row.clamp(max=KEY_MAX - 1)[:, None].contiguous()
@@ -467,58 +811,17 @@ def phase_kernels(dev) -> dict:
     torch.cuda.empty_cache()
 
     # ---- paged attention: the serving path's decode shapes ----------------
-    def pa_inputs(B, KVH, G, D, S, P, MP, qdt, kvdt, lens=None):
-        randn = lambda *shape: torch.randn(shape, generator=g, device=dev)
-        if B * MP < P:                       # distinct pages, none the null one
-            bt = (torch.randperm(P - 1, generator=g, device=dev)[: B * MP]
-                  + 1).reshape(B, MP)
-        else:
-            bt = torch.randint(0, P, (B, MP), generator=g, device=dev)
-        if lens is None:
-            lens = torch.randint(1, MP * S + 1, (B,), generator=g, device=dev)
-        return (randn(B, KVH, G, D).to(qdt), randn(KVH, P, S, D).to(kvdt),
-                randn(KVH, P, S, D).to(kvdt), bt.to(torch.int32),
-                torch.as_tensor(lens, device=dev).to(torch.int32))
-
-    def pa_check(label, tol, args):
-        got = pa.paged_attention_cuda(*args)
-        want = pa.paged_attention_plain(*args)
-        torch.cuda.synchronize()
-        assert got.dtype == want.dtype == args[0].dtype
-        torch.testing.assert_close(got.float(), want.float(), atol=tol,
-                                   rtol=tol, msg=lambda m: f"{label}: {m}")
-        return float((got.float() - want.float()).abs().max())
-
     f32, bf16 = torch.float32, torch.bfloat16
-    errs = []
-    for B_, KVH_, G_, D_, S_, MP_ in ((2, 1, 8, 128, 16, 4), (4, 2, 8, 128, 16, 6),
-                                      (1, 4, 4, 64, 8, 3), (3, 2, 16, 256, 32, 2),
-                                      (4, 2, 2, 32, 8, 1)):
-        errs.append(pa_check(f"paged_attention {B_, KVH_, G_, D_, S_, MP_}",
-                             3e-5, pa_inputs(B_, KVH_, G_, D_, S_, MP_ * 4, MP_,
-                                             f32, f32)))
-    errs.append(pa_check("paged_attention bf16", 3e-2,
-                         pa_inputs(2, 2, 4, 128, 16, 16, 4, bf16, bf16,
-                                   lens=[64, 17])))
-    args0 = pa_inputs(3, 2, 4, 64, 8, 12, 3, f32, f32, lens=[0, 5, 24])
-    errs.append(pa_check("paged_attention seq_len 0", 3e-5, args0))
-    mean_v = args0[2][:, args0[3][0].long()].reshape(2, -1, 64).mean(dim=1)
-    got0 = pa.paged_attention_cuda(*args0)[0]
-    torch.testing.assert_close(got0, mean_v[:, None].expand_as(got0),
-                               atol=3e-5, rtol=3e-5)
-    bad = args0[3].clone()
-    bad[1, 2] = 12
-    try:
-        pa.paged_attention_cuda(*args0[:3], bad, args0[4])
-        raise AssertionError("an out-of-range page id must raise")
-    except IndexError:
-        pass
-    log(f"  paged_attention edge cases (tests/test_kernels.py shapes, MP=1, "
-        f"bf16, seq_len 0 = mean of V, out-of-range id raises): max abs err "
-        f"{max(errs):.3g}")
-
+    e32, e16, n_cases, splits = pa_edge_sweep(g, dev)
+    assert any(mp % -(-mp // ns) for mp, ns in splits), \
+        "no edge case has MP off a whole number of splits"
+    log(f"  paged_attention edge sweep ({n_cases} calls: the kernel tests' "
+        f"shapes; MP = 1; splits capped at MP; MP off the split; seq_lens 0, "
+        f"1, MP*S; G = 1, 8; fp32, bf16 and bf16-over-fp32; (MP, splits) "
+        f"{splits}; a misaligned slice and an out-of-range id raise): max abs "
+        f"err fp32 {e32:.3g}, bf16 {e16:.3g}")
     B, KVH, G, D, S, P, MP = 4, 8, 4, 128, 8, 1024, 36
-    args32 = pa_inputs(B, KVH, G, D, S, P, MP, f32, f32)
+    args32 = pa_inputs(g, dev, B, KVH, G, D, S, P, MP, f32, f32)
     err32 = pa_check("paged_attention fp32 serving shapes", 3e-5, args32)
     args = (args32[0].to(bf16),) + args32[1:]           # the served types
     err = pa_check("paged_attention bf16-over-fp32 serving shapes", 3e-2, args)
@@ -545,6 +848,15 @@ def phase_kernels(dev) -> dict:
            lambda: pa.paged_attention_plain(*args), library,
            nbytes=kv_elems * (4 + 4) + 2 * q.numel() * 2 + bt.numel() * 4 + B * 4,
            nops=4 * B * KVH * G * MP * S * D + 5 * B * KVH * G * MP * S)
+    sets = pa_serving_sets(g, dev)
+    pa_timings(sets, f"(this build, {pa_splits(B, KVH, MP)} splits)")
+    for c, lib in variants["attention"].items():
+        with kernel_library(lib):
+            e32, e16, _, _ = pa_edge_sweep(g, dev)
+            pa_timings(sets, f"PA_SPLIT_CTAS={c} ({pa_splits(B, KVH, MP)} "
+                             f"splits; edge sweep fp32 {e32:.3g}, bf16 "
+                             f"{e16:.3g})")
+    del sets
     torch.cuda.empty_cache()
     return rows
 
@@ -948,6 +1260,45 @@ def phase_exact(dev, args) -> None:
     torch.cuda.empty_cache()
 
 
+def build_kernels(tmp: str) -> dict:
+    """Build the kernel library and, beside it, the ptxas reports and the
+    swept variants (all ``nvcc`` processes started together); print the
+    reports.  Returns {"search": {W: lib}, "attention": {CTAs: lib}}."""
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    reports = {src: ptxas_report(src, tmp) for src in PTXAS_SOURCES}
+    builds = variant_builds(tmp)
+    variants = {"search": {}, "attention": {}}
+    try:
+        lib = _build.build()
+        _build.library()
+        for src, proc in reports.items():
+            out, _ = proc.communicate(timeout=600)
+            if proc.returncode:
+                raise RuntimeError(f"nvcc -Xptxas -v {src} failed:\n{out}")
+            reports[src] = out
+        for src, macro, value, so, proc in builds:
+            out, _ = proc.communicate(timeout=600)
+            if proc.returncode:
+                raise RuntimeError(f"nvcc -D{macro}={value} {src} failed:\n{out}")
+            kind = "search" if macro == "SS_W" else "attention"
+            variants[kind][value] = load_variant(so)
+    finally:                   # no compiler outlives a failed build
+        for proc in [*reports.values(), *(b[-1] for b in builds)]:
+            if isinstance(proc, subprocess.Popen) and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    log(f"kernels built in {time.perf_counter() - t0:.1f} s: {lib} (and "
+        f"{len(builds)} swept variants)")
+    for src, out in reports.items():
+        log(f"{src}, nvcc -Xptxas -v: " + "; ".join(
+            " ".join(line.split()) for line in out.splitlines()
+            if "registers" in line or "spill" in line
+            or "Compiling entry" in line))
+    return variants
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--preload", type=int, default=1 << 24)
@@ -971,21 +1322,14 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
     log(f"device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        report = ptxas_report("merge_sorted.cu", tmp)
-        lib = _build.build()
-        _build.library()
-        out, _ = report.communicate(timeout=600)
-    if report.returncode:
-        raise RuntimeError(f"nvcc -Xptxas -v merge_sorted.cu failed:\n{out}")
-    log(f"kernels built in {time.perf_counter() - t0:.1f} s: {lib}")
-    log("merge kernel, nvcc -Xptxas -v: " + "; ".join(
-        " ".join(line.split()) for line in out.splitlines()
-        if "registers" in line or "spill" in line))
+    tmp = tempfile.TemporaryDirectory()
+    variants = build_kernels(tmp.name)
 
     log("phase 1: kernels vs their plain versions on the card")
-    rows = phase_kernels(dev)
+    try:
+        rows = phase_kernels(dev, variants)
+    finally:
+        tmp.cleanup()
     log("phase 2+3: NB-tree path through TorchNBTreeEngine, checked by an oracle")
     paths = {"nbtree": phase_main_path(dev, args)}
     log("launches on the NB-tree path: " + json.dumps(paths["nbtree"]))

@@ -34,7 +34,8 @@ P, I, LL, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 #: C signature of every launcher: pointers and the stream as ``c_void_p``
 #: (so ctypes never cuts a 64-bit address), sizes as ``c_int``/``c_longlong``,
 #: scales as ``c_float``.
-#: Each returns the ``cudaError_t`` of its launch.
+#: Each launcher returns the ``cudaError_t`` of its launch;
+#: ``paged_attention_splits`` returns the split count the launcher uses.
 SIGNATURES = {
     "merge_sorted_launch": (P, P, P, P, P, P, I, I, I, I, I, P),
     "sorted_search_launch": (P, P, P, P, P, P, I, I, P),
@@ -43,8 +44,9 @@ SIGNATURES = {
     "bloom_probe_rows_launch": (P, LL, P, P, P, I, I, I, P),
     "range_scan_launch": (P, P, I, P, P, P, P, P, I, I, P),
     "range_scan_rows_launch": (P, P, LL, P, P, P, P, P, P, P, I, I, I, P),
-    "paged_attention_launch": (P, P, P, P, P, P, I, I, I, I, I, I, I, F, I, I,
-                               P),
+    "paged_attention_launch": (P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F,
+                               I, I, P),
+    "paged_attention_splits": (I, I, I),
     "empty_launch": (P,),
 }
 

@@ -23,13 +23,21 @@ outside ``[0, P)`` raises before anything is read.
 What bounds it on the H100: bytes.  Every K and V element of the named
 pages is read once (fp32 pages at the serving shapes: 9.4 MB, whose bound
 is 2.8 us on an H100 SXM at 3.35 TB/s), against ~2 flops per byte.  The
-kernel gives each (b, kv head) one CTA, or several that split its query
-heads when B*KVH CTAs would leave SMs idle (128 CTAs of one query head at
-the serving shapes), and walks the pages in rounds of 64 slots copied
-into shared memory with ``cp.async``.  The rounds of a CTA are dependent,
-so it stays latency-bound.  Split-K over pages, double-buffered staging
-and ``wgmma`` are left for later.  bf16 pages are copied in 4-byte words:
-S*D must be even.
+kernel splits each sequence's pages over NS CTAs (split-K, flash-decoding;
+NS from B, KVH and MP so that the grid fills the SMs), and each CTA holds
+up to 8 query heads of its KV head (all G = 4 of them when serving), so a
+page is read from device memory once.  A CTA stages its pages into shared
+memory with 16-byte ``cp.async`` in a ring of three chunks, two in flight
+while one is used; each warp keeps its own online-softmax state in
+registers over blocks of 4 slots, so a chunk has no barrier of its own.
+Each split leaves its partial state (m, l, acc) in a workspace; the last
+CTA of each (b, kv head, head group), found by an atomic ticket, combines
+them, so a call is one launch.  What is left: the dot products run on the
+CUDA cores (``wgmma`` does not pay at G = 4 rows), and a CTA waits two
+dependent device-memory round trips before it computes.  The page storage
+must be 16-byte aligned, a page (S*D elements) a multiple of 16 bytes and
+D a multiple of 32 up to 256: a layer of the cache is at every served
+shape, and anything else raises.
 """
 from __future__ import annotations
 
@@ -85,6 +93,31 @@ def paged_attention_plain(q, k_pages, v_pages, block_tables, seq_lens):
 
 _FLOATS = (torch.float32, torch.bfloat16)
 
+#: per device, the split-K tickets: one counter per (b, kv head, head
+#: group), zero between launches (the last CTA of each resets its own)
+_ticket_buffers: dict = {}
+
+
+def _tickets(dev, n: int):
+    buf = _ticket_buffers.get(dev)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 256), dtype=torch.int32, device=dev)
+        _ticket_buffers[dev] = buf
+    return buf
+
+
+def check_alignment(k_pages, v_pages) -> None:
+    """Raise unless the kernel's 16-byte copies fit: both page tensors start
+    on a 16-byte boundary and a page (S*D elements) is a multiple of 16
+    bytes.  No narrower copy stands in."""
+    _, _, S, D = k_pages.shape
+    page_bytes = S * D * k_pages.element_size()
+    if page_bytes % 16 or k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
+        raise ValueError(
+            f"paged_attention: pages are copied in 16-byte units: a page of "
+            f"{page_bytes} bytes and storage at {k_pages.data_ptr() % 16} / "
+            f"{v_pages.data_ptr() % 16} bytes past a 16-byte boundary")
+
 
 def paged_attention_cuda(q, k_pages, v_pages, block_tables, seq_lens):
     dev = q.device
@@ -104,22 +137,27 @@ def paged_attention_cuda(q, k_pages, v_pages, block_tables, seq_lens):
         raise ValueError(f"paged_attention: q {tuple(q.shape)}, k_pages "
                          f"{tuple(k_pages.shape)}, v_pages "
                          f"{tuple(v_pages.shape)} do not agree")
+    if D % 32 or D > 256:
+        raise ValueError(f"paged_attention: the kernel takes D in 4-wide "
+                         f"pieces, at most two a lane: D = {D} must be a "
+                         f"multiple of 32 and at most 256")
     if block_tables.shape[0] != B or seq_lens.shape != (B,):
         raise ValueError("paged_attention: block_tables / seq_lens batch "
                          "differs from q's")
-    if k_pages.dtype == torch.bfloat16 and (S * D % 2 or k_pages.data_ptr() % 4
-                                            or v_pages.data_ptr() % 4):
-        raise ValueError("paged_attention: bf16 pages are copied in 4-byte "
-                         "words: S*D must be even and the storage 4-byte "
-                         "aligned")
+    check_alignment(k_pages, v_pages)
     _check_tables(block_tables, P)
     out = torch.empty_like(q)
     if q.numel():
+        splits = _build.library().paged_attention_splits(B, KVH, MP)
+        ws = torch.empty(B * KVH * splits * G * (D + 2) if splits > 1 else 0,
+                         dtype=torch.float32, device=dev)
         _build.launch("paged_attention_launch", dev, q.data_ptr(),
                       k_pages.data_ptr(), v_pages.data_ptr(),
                       block_tables.data_ptr(), seq_lens.data_ptr(),
-                      out.data_ptr(), B, KVH, G, D, P, S, MP,
-                      1.0 / math.sqrt(D), int(q.dtype == torch.bfloat16),
+                      out.data_ptr(), ws.data_ptr(),
+                      _tickets(dev, B * KVH * -(-G // 4)).data_ptr(), B, KVH,
+                      G, D, P, S, MP, 1.0 / math.sqrt(D),
+                      int(q.dtype == torch.bfloat16),
                       int(k_pages.dtype == torch.bfloat16))
         launches["paged_attention"] += 1
     return out

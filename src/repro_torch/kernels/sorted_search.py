@@ -10,12 +10,16 @@ and the per-level run search that ``_query_batch_impl`` inlines
   searches the first ``counts[t]`` keys of row ``rows[t]`` of a node table,
   so the descent runs one launch per level.  ``found`` is a bool mask.
 
-What bounds it on the H100: one thread per query, ~log2(n) dependent 8-byte
-reads from device memory (a latency chain, not bandwidth: 4096 queries move
-well under a MB).  At the descent's shapes the launch is latency- and
-launch-bound.  The simple design leaves for later: fusing probe, search and
-pivot routing of every level into one descent kernel, and staging the top
-levels of each searched run in shared memory.
+What bounds it on the H100: latency, not bytes (4096 queries move well
+under a MB).  A binary search is ~log2(n) dependent reads, each an L2 or
+device-memory round trip, and the descent's launches carry few queries
+(144-205 on the main path).  The kernel gives each query a group of lanes
+that search k-ary: every lane loads its probe, the group votes on the
+leftmost probe >= q, and the window shrinks by the group's width plus one
+a round, so a 21,504-key row takes 3-5 dependent rounds, the last one a
+coalesced read of the remaining keys and their values.  Left for later:
+fusing probe, search and pivot routing of every level into one descent
+kernel.
 """
 from __future__ import annotations
 

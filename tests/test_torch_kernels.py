@@ -18,7 +18,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.merge_sorted import merge_sorted_cuda
-from repro_torch.kernels.paged_attention import paged_attention_cuda
+from repro_torch.kernels.paged_attention import (check_alignment,
+                                                 paged_attention_cuda)
 
 KEY_MAX = 0xFFFFFFFF
 
@@ -404,6 +405,102 @@ def test_paged_attention_rejects_out_of_range_pages(rng, bad):
         tops.paged_attention(q, kp, vp, bt, lens)
     with pytest.raises(ValueError, match="CUDA tensor"):
         paged_attention_cuda(q, kp, vp, bt, lens)
+
+
+def _split_k_model(q, kp, vp, bt, lens, n_splits, ppc=2):
+    """The CUDA kernel's algebra in plain PyTorch: split s of each (b, kv
+    head) takes the pages [s*pps, (s+1)*pps), pps = ceil(MP / n_splits), in
+    chunks of ppc pages with an fp32 online softmax, and leaves (m, l,
+    acc); the combine weighs each split by e^(m_s - m*)."""
+    B, KVH, G, D = q.shape
+    S, MP = kp.shape[2], bt.shape[1]
+    pps = -(-MP // n_splits)
+    qf, kf, vf = q.float(), kp.float(), vp.float()
+    out = torch.empty(B, KVH, G, D)
+    for b in range(B):
+        for h in range(KVH):
+            parts = []
+            for s in range(n_splits):
+                m = torch.full((G, 1), -1e30)
+                l = torch.zeros(G, 1)
+                acc = torch.zeros(G, D)
+                pages = range(s * pps, min(MP, (s + 1) * pps))
+                for c in range(0, len(pages), ppc):
+                    chunk = pages[c:c + ppc]
+                    k = kf[h, bt[b, list(chunk)].long()].reshape(-1, D)
+                    v = vf[h, bt[b, list(chunk)].long()].reshape(-1, D)
+                    slot = chunk[0] * S + torch.arange(len(chunk) * S)
+                    sc = (qf[b, h] @ k.T) * (1.0 / D ** 0.5)
+                    sc = torch.where(slot < int(lens[b]), sc, -1e30)
+                    m_new = torch.maximum(m, sc.max(dim=1, keepdim=True).values)
+                    p = torch.exp(sc - m_new)
+                    alpha = torch.exp(m - m_new)
+                    l = alpha * l + p.sum(dim=1, keepdim=True)
+                    acc = alpha * acc + p @ v
+                    m = m_new
+                parts.append((m, l, acc))
+            m_star = torch.stack([m for m, _, _ in parts]).max(dim=0).values
+            w = [torch.exp(m - m_star) for m, _, _ in parts]
+            l_tot = sum(wi * l for wi, (_, l, _) in zip(w, parts))
+            o = sum(wi * acc for wi, (_, _, acc) in zip(w, parts))
+            out[b, h] = o / torch.where(l_tot == 0, 1.0, l_tot)
+    return out.to(q.dtype)
+
+
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("n_splits", [1, 2, 3, "MP"])
+def test_split_k_combine_matches_plain_and_pallas(rng, G, n_splits):
+    """Split-K with MP = 5 pages (not a multiple of 2 or 3; 3 splits of 2
+    leave the last split one page): sequence 0 is empty (the mean of V),
+    sequence 1 ends in the first page, so every later split of it lies past
+    seq_len and must weigh 0.  fp32 tolerance 3e-5, the JAX kernel tests':
+    the combine re-associates the softmax sums, nothing else differs."""
+    MP = 5
+    n_splits = MP if n_splits == "MP" else n_splits
+    q, kp, vp, bt, lens = _paged_inputs(rng, 3, 2, G, 32, 4, MP,
+                                        lens=[0, 3, 17])
+    j, t = _paged_both(q, kp, vp, bt, lens)
+    model = _split_k_model(*(torch.from_numpy(x) for x in (q, kp, vp, bt, lens)),
+                           n_splits).numpy()
+    np.testing.assert_allclose(model, t, atol=3e-5, rtol=3e-5)
+    np.testing.assert_allclose(model, j, atol=3e-5, rtol=3e-5)
+    mean_v = vp[:, bt[0]].reshape(2, -1, 32).mean(axis=1)
+    np.testing.assert_allclose(model[0], np.broadcast_to(mean_v[:, None],
+                                                         model[0].shape),
+                               atol=3e-5, rtol=3e-5)
+
+
+def test_split_k_combine_bf16_pages(rng):
+    """bf16 q and pages, 4 splits of 2 pages over MP = 7: the model computes
+    in fp32 from the bf16 inputs as the kernel does; tolerance 3e-2, the
+    bf16 rounding of the output."""
+    q, kp, vp, bt, lens = _paged_inputs(rng, 2, 2, 4, 64, 8, 7,
+                                        lens=[9, 56])
+    j, t = _paged_both(q, kp, vp, bt, lens, jdtype=jnp.bfloat16,
+                       tdtype=torch.bfloat16)
+    args = [torch.from_numpy(x).to(torch.bfloat16) for x in (q, kp, vp)]
+    model = _split_k_model(*args, torch.from_numpy(bt), torch.from_numpy(lens),
+                           4)
+    assert model.dtype == torch.bfloat16
+    np.testing.assert_allclose(model.float().numpy(), t, atol=3e-2, rtol=3e-2)
+    np.testing.assert_allclose(model.float().numpy(), j, atol=3e-2, rtol=3e-2)
+
+
+def test_paged_attention_rejects_misaligned_pages():
+    """The kernel copies pages in 16-byte units: storage off a 16-byte
+    boundary, or a page whose bytes are not a multiple of 16, raises before
+    any launch (no narrower copy stands in)."""
+    pages = torch.zeros(2, 3, 4, 8)                     # 128-byte pages
+    check_alignment(pages, pages)
+    check_alignment(torch.zeros(2, 3, 2, 4, 8)[1], pages)   # a layer slice
+    shifted = torch.zeros(2 * 3 * 4 * 8 + 1)[1:].view(2, 3, 4, 8)
+    with pytest.raises(ValueError, match="16-byte"):
+        check_alignment(shifted, pages)
+    with pytest.raises(ValueError, match="16-byte"):
+        check_alignment(pages, shifted)
+    odd = torch.zeros(2, 3, 1, 6, dtype=torch.bfloat16)  # 12-byte pages
+    with pytest.raises(ValueError, match="16-byte"):
+        check_alignment(odd, odd)
 
 
 # -------------------------------------------------------- dispatch & build
