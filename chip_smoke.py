@@ -13,12 +13,12 @@ network)::
    tests: the integer kernels bit for bit, ``paged_attention`` to the JAX
    kernel tests' tolerances (fp32 3e-5, bf16 3e-2).  Times each (CUDA
    graph replay between CUDA events), its plain version and, where one
-   PyTorch call computes the same function, that call.  The merge,
-   ``sorted_search_rows`` and ``paged_attention`` also run an edge sweep
-   and are timed cold (inputs out of L2) at their path's shapes; the last
-   two are swept over the constant each fixes in its source (``SS_W``,
-   ``PA_SPLIT_CTAS``), each value built as a library of its own beside
-   the build, and the ``nvcc -Xptxas -v`` report of all three is printed.
+   PyTorch call computes the same function, that call.  Every kernel
+   also runs an edge sweep and is timed warm and cold (inputs out of L2)
+   at its path's shapes; all but the merge are swept over the constants
+   their sources fix (``SWEEPS``), each value built as a library of its
+   own beside the build, and their ``nvcc -Xptxas -v`` reports are
+   printed.  Phase 3 logs the shapes of the range launches it makes.
 2. Drives the NB-tree path through the engine a user calls:
    ``TorchNBTreeEngine(f=4, sigma=4096)`` on ``cuda``; a YCSB load phase of
    ``preload = 2^24`` keys over ``key_space = 2^26``, the paper's
@@ -46,6 +46,7 @@ just after; every kernel must have launched on its own path.  Prints a
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import ctypes
 import dataclasses
@@ -176,7 +177,8 @@ def merge_ops(out_n: int) -> float:
     return 6 * (tiles * 64 + threads * search + out_n)
 
 
-PTXAS_SOURCES = ("merge_sorted.cu", "sorted_search.cu", "paged_attention.cu")
+PTXAS_SOURCES = ("merge_sorted.cu", "sorted_search.cu", "bloom_filter.cu",
+                 "range_scan.cu", "paged_attention.cu")
 
 
 def ptxas_report(source: str, out_dir: str) -> subprocess.Popen:
@@ -325,7 +327,16 @@ def merge_timings(g, dev) -> None:
 
 
 SEARCH_W = (8, 16, 32)                        # SS_W values the sweep builds
+BLOOM_THREADS = (64, 128, 256)                # BP_THREADS values
+RANGE_W = (4, 8, 16)                          # RS_W values
+RANGE_WARPS = (2, 4, 8)                       # RS_WARPS values
 PA_SPLIT_CTAS = (32, 64, 128, 160, 256, 384)   # PA_SPLIT_CTAS values
+#: the swept constant of each kernel source, and the key of its variants
+SWEEPS = {"SS_W": ("sorted_search.cu", SEARCH_W, "search"),
+          "BP_THREADS": ("bloom_filter.cu", BLOOM_THREADS, "bloom"),
+          "RS_W": ("range_scan.cu", RANGE_W, "range lanes"),
+          "RS_WARPS": ("range_scan.cu", RANGE_WARPS, "range warps"),
+          "PA_SPLIT_CTAS": ("paged_attention.cu", PA_SPLIT_CTAS, "attention")}
 
 
 def variant_builds(out_dir: str) -> list:
@@ -334,11 +345,11 @@ def variant_builds(out_dir: str) -> list:
     a library of their own.  Returns (source, constant, value, path, proc)."""
     from repro_torch.kernels import _build
 
-    jobs = [("sorted_search.cu", "SS_W", w) for w in SEARCH_W]
-    jobs += [("paged_attention.cu", "PA_SPLIT_CTAS", c) for c in PA_SPLIT_CTAS]
+    jobs = [(source, macro, v) for macro, (source, values, _) in SWEEPS.items()
+            for v in values]
     out = []
     for source, macro, value in jobs:
-        so = Path(out_dir) / f"{Path(source).stem}_{value}.so"
+        so = Path(out_dir) / f"{Path(source).stem}_{macro}_{value}.so"
         out.append((source, macro, value, so, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, f"-D{macro}={value}",
              "-shared", str(_build.CSRC / source),
@@ -510,6 +521,355 @@ def search_timings(g, dev, tkeys, tvals, tcounts, label: str) -> dict:
     return out
 
 
+# ------------------------------------------------------- bloom probe sweeps
+PAGE_NW = 3584       # Bloom words of a page-index row (f=4, sigma=2048)
+HASHES = (1, 2, 3, 4, 5, 6)
+
+
+def pack_bits(bits):
+    """(R, 32 * nw) 0/1 cells -> (R, nw) words, bit i % 32 of word i // 32."""
+    shifts = torch.arange(32, dtype=torch.int64, device=bits.device)
+    return (bits.view(bits.shape[0], -1, 32).long() << shifts).sum(-1)
+
+
+def bloom_table(tkeys):
+    """The node table's filters, built as the index builds them (chunks of
+    128 rows); row 5 is emptied (an all-zero filter)."""
+    from repro_torch.kernels import ops
+
+    T = tkeys.shape[0]
+    bloom = torch.empty((T, NW), dtype=torch.int64, device=tkeys.device)
+    for i in range(0, T, 128):
+        bloom[i:i + 128] = ops.bloom_build(tkeys[i:i + 128], NW * 32, H)
+    bloom[5] = 0
+    return bloom
+
+
+def page_bloom_table(g, dev):
+    """4096 page-index filter rows of random words: 117 MB, more than L2."""
+    return torch.randint(0, KEY_MAX + 1, (4096, PAGE_NW), generator=g,
+                         device=dev)
+
+
+def bloom_edge_cases(g, dev):
+    """(label, table, rows, q, nbits, h): the probe's edge sweep over 64
+    filter rows of NW words: even rows built from 2000 keys, odd rows and the
+    last one dense (90 % of bits set, so h = 6 probes hit), row 5 all zero.
+    Every query set probes the last row and the empty one and holds keys 0,
+    KEY_MAX - 1 and KEY_MAX, as far as Q allows."""
+    from repro_torch.kernels import ops
+
+    R = 64
+    members = torch.randint(0, KEY_MAX, (R, 2000), generator=g, device=dev)
+    table = ops.bloom_build(members, NW * 32, H)
+    dense = pack_bits(torch.rand((R, NW * 32), generator=g, device=dev) < 0.9)
+    table[1::2] = dense[1::2]
+    table[R - 1] = dense[R - 1]
+    table[5] = 0
+
+    def queries(Q):
+        rows = torch.randint(0, R, (Q,), generator=g, device=dev,
+                             dtype=torch.int32)
+        pick = torch.randint(0, 2000, (Q,), generator=g, device=dev)
+        q = torch.where(torch.rand(Q, generator=g, device=dev) < 0.5,
+                        members[rows.long(), pick],
+                        torch.randint(0, KEY_MAX + 1, (Q,), generator=g,
+                                      device=dev))
+        rows[:2] = torch.tensor([R - 1, 5], dtype=torch.int32, device=dev)[:Q]
+        q[:3] = torch.tensor([0, KEY_MAX - 1, KEY_MAX], device=dev)[:Q]
+        return rows, q
+
+    cases = []
+    for h in HASHES:
+        for nbits in (NW * 32, NW * 32 - 1, NW * 32 - 80, 1009):
+            cases.append((f"h={h} nbits={nbits}", table, *queries(4096),
+                          nbits, h))
+    for Q in (1, 37, 255, 257):
+        cases.append((f"Q = {Q}", table, *queries(Q), NW * 32, H))
+    return cases
+
+
+def bloom_edge_sweep(g, dev) -> tuple:
+    """Both entry points on the edge cases, bit for bit against the plain
+    version; the one-filter form on the last row, the empty row and a random
+    one in turn."""
+    from repro_torch.kernels import bloom_filter as bf
+
+    err = n_checks = 0
+    for i, (label, table, rows, q, nbits, h) in enumerate(
+            bloom_edge_cases(g, dev)):
+        err = max(err, assert_exact(f"bloom_probe_rows {label}",
+                                    bf.bloom_probe_rows_cuda,
+                                    bf.bloom_probe_rows_plain, table, rows, q,
+                                    nbits=nbits, h=h))
+        words = table[(table.shape[0] - 1, 5, int(rows[-1]))[i % 3]]
+        err = max(err, assert_exact(f"bloom_probe {label}", bf.bloom_probe_cuda,
+                                    bf.bloom_probe_plain, words, q,
+                                    nbits=nbits, h=h))
+        n_checks += 2
+    return err, n_checks
+
+
+def bloom_sets(g, dev, bloom, page_bloom, tkeys, tcounts, shape: str,
+               n_sets: int) -> list:
+    """Probe sets (table, rows, q) of one main-path shape, 40 % misses:
+    ``4096``: 4096 queries, one per row of the 4096-row table (the shape
+    phase 1 has always timed); ``205``: a point-read batch of insert-heavy
+    over the descent's node rows, random rows of one 256-row slice of the
+    table (the 16 slices of 14 MB in turn); ``144``: the page index's
+    block-table read, 144 queries on one row of a table of page-index
+    filters (PAGE_NW words), another row each set."""
+    T = tkeys.shape[0]
+    page_rows = torch.randperm(page_bloom.shape[0], generator=g, device=dev)
+    sets = []
+    for i in range(n_sets):
+        if shape == "144":
+            rows = torch.full((144,), int(page_rows[i]), dtype=torch.int32,
+                              device=dev)
+            q = torch.randint(0, KEY_MAX, (144,), generator=g, device=dev)
+            sets.append((page_bloom, rows, q))
+            continue
+        if shape == "205":
+            s = i % (T // 256)
+            table = bloom[s * 256:(s + 1) * 256]
+            rows = torch.randint(0, 256, (205,), generator=g, device=dev,
+                                 dtype=torch.int32)
+            key_rows = rows.long() + s * 256
+        else:
+            table = bloom
+            rows = torch.randperm(T, generator=g, device=dev).to(torch.int32)
+            key_rows = rows.long()
+        Q = rows.numel()
+        cnt = tcounts[key_rows].long()
+        pick = torch.randint(0, RUN_CAP, (Q,), generator=g, device=dev)
+        q = tkeys[key_rows, torch.minimum(pick, (cnt - 1).clamp(min=0))]
+        miss = torch.rand(Q, generator=g, device=dev) < 0.4
+        q = torch.where(miss, torch.randint(0, KEY_MAX, (Q,), generator=g,
+                                            device=dev), q)
+        sets.append((table, rows, q))
+    return sets
+
+
+def bloom_bound_ms(Q: int, h: int) -> float:
+    """One probe launch: each query's row, key, output and h words moved
+    once; ~12 integer ops a hash."""
+    return max(Q * (h * 8 + 8 + 4 + 1) / PEAK_BYTES_S,
+               Q * h * 12 / PEAK_OPS_S) * 1e3
+
+
+def bloom_timings(g, dev, bloom, page_bloom, tkeys, tcounts,
+                  label: str) -> dict:
+    """``bloom_probe_rows`` at the three shapes, warm (20 calls on one set)
+    and cold (one call on each of 64 sets, over tables of more than 64 MB),
+    the first sets checked bit for bit."""
+    from repro_torch.kernels import bloom_filter as bf
+
+    def probe(table, rows, q):
+        return bf.bloom_probe_rows_cuda(table, rows, q,
+                                        nbits=table.shape[1] * 32, h=H)
+
+    def plain(table, rows, q):
+        return bf.bloom_probe_rows_plain(table, rows, q,
+                                         nbits=table.shape[1] * 32, h=H)
+
+    out = {}
+    for shape in ("4096", "205", "144"):
+        sets = bloom_sets(g, dev, bloom, page_bloom, tkeys, tcounts, shape, 64)
+        for s in sets[:4]:
+            assert_exact(f"bloom_probe_rows {label} Q={shape}", probe, plain,
+                         *s)
+        warm = device_ms(lambda: probe(*sets[0]), 20)
+        cold = graph_ms([lambda s=s: probe(*s) for s in sets])
+        out[shape] = (warm, cold, bloom_bound_ms(sets[0][1].numel(), H))
+        log(f"  bloom_probe_rows {label} Q={shape}: warm {warm:.5f} ms, cold "
+            f"{cold:.5f} ms, bound {out[shape][2]:.6f} ms")
+    return out
+
+
+# -------------------------------------------------------- range scan sweeps
+#: the ycsb-e path's range launch (phase 3 logs the shapes it sees): 973
+#: ranges padded to 1024 by repeating the last, 16 candidates with ~9 real
+#: nodes, cap = the engine's max_results, 256 after its first doubling
+YCSB_E_B, YCSB_E_PAD, YCSB_E_M, YCSB_E_CAP = 973, 1024, 16, 256
+#: row counts of the range edge sweep: the edges of the k-ary search's last
+#: window at every group width, and the extremes
+RANGE_COUNTS = tuple(sorted({0, 1, RUN_CAP - 1, RUN_CAP}
+                            | {w + d for w in (4, 8, 16, 32) for d in (-1, 0, 1)}))
+
+
+def range_edge_table(g, dev):
+    """Rows of RUN_CAP slots, one per count of RANGE_COUNTS, then a full
+    row of distinct keys
+    (spans of exactly cap) and a full row of 300 keys, each many times;
+    KEY_MAX with stale values past each count."""
+    R = len(RANGE_COUNTS) + 2
+    keys = sorted_rows(g, R, RUN_CAP, 2**24, dev)
+    keys[:, 1::7] = keys[:, 0::7][:, : keys[:, 1::7].shape[1]]   # duplicates
+    keys[R - 2] = torch.randperm(2**24, generator=g, device=dev)[:RUN_CAP]
+    keys[R - 1] = torch.randint(0, 300, (RUN_CAP,), generator=g, device=dev)
+    keys = torch.sort(keys, dim=1).values
+    counts = torch.tensor(RANGE_COUNTS + (RUN_CAP, RUN_CAP), device=dev,
+                          dtype=torch.int32)
+    keys = torch.where(torch.arange(RUN_CAP, device=dev)[None, :]
+                       >= counts[:, None], KEY_MAX, keys)
+    vals = torch.randint(0, 2**31 - 1, (R, RUN_CAP), generator=g, device=dev,
+                         dtype=torch.int32)
+    return keys, vals, counts
+
+
+def range_edge_queries(g, dev, keys, counts, B, M, cap):
+    """(nodes, counts, lo, hi, kind) for B queries of M candidates over the
+    edge table, kind = b % 8: a random span; lo > hi; lo = hi on a key held
+    many times; [0, KEY_MAX - 1]; [0, KEY_MAX]; exactly cap and cap + 1 keys
+    of the distinct row (its candidate first); [random, KEY_MAX].  Every
+    third query's second half of candidates is padding, node -1 clamped to
+    0 with count 0, as the range descent passes it."""
+    R = keys.shape[0]
+    few, distinct = R - 1, R - 2
+    nodes = torch.randint(0, R, (B, M), generator=g, device=dev)
+    kind = torch.arange(B, device=dev) % 8
+    nodes[kind == 2, 0] = few
+    nodes[(kind == 5) | (kind == 6), 0] = distinct
+    i = torch.randint(0, RUN_CAP - cap - 1, (B,), generator=g, device=dev)
+    lo = torch.randint(0, 2**24, (B,), generator=g, device=dev)
+    hi = lo + torch.randint(0, 2**20, (B,), generator=g, device=dev)
+    lo = torch.where(kind == 1, lo + 1, lo)
+    hi = torch.where(kind == 1, lo - 1, hi)
+    dup = keys[few, 5000]
+    lo = torch.where(kind == 2, dup, lo)
+    hi = torch.where(kind == 2, dup, hi)
+    lo = torch.where((kind == 3) | (kind == 4), 0, lo)
+    hi = torch.where(kind == 3, KEY_MAX - 1, torch.where(kind >= 4, KEY_MAX, hi))
+    lo = torch.where((kind == 5) | (kind == 6), keys[distinct, i], lo)
+    hi = torch.where(kind == 5, keys[distinct, i + cap - 1],
+                     torch.where(kind == 6, keys[distinct, i + cap], hi))
+    pad = (torch.arange(B, device=dev) % 3 == 2)[:, None] & (
+        torch.arange(M, device=dev) >= max(M // 2, 1))[None, :]
+    nodes = torch.where(pad, 0, nodes)
+    cnt = torch.where(pad, 0, counts[nodes])
+    return (nodes.to(torch.int32), cnt.to(torch.int32), lo.contiguous(),
+            hi.contiguous(), kind)
+
+
+def range_edge_sweep(g, dev) -> tuple:
+    """Both entry points on the edge cases, bit for bit against the plain
+    version: caps 1, 3, 64, 128, 130, 256 over 64 x 4 candidates, and B x M
+    = 1 and 37; the one-run form on two rows a case, every row once
+    (KEY_MAX padding past its count), with the same queries."""
+    from repro_torch.kernels import range_scan as rs
+
+    keys, vals, counts = range_edge_table(g, dev)
+    err = n_checks = 0
+    shapes = [(64, 4, cap) for cap in (1, 3, 64, 128, 130, 256)]
+    shapes += [(1, 1, 128), (37, 1, 130)]
+    for c, (B, M, cap) in enumerate(shapes):
+        nodes, cnt, lo, hi, kind = range_edge_queries(g, dev, keys, counts,
+                                                      B, M, cap)
+        label = f"B={B} M={M} cap={cap}"
+        err = max(err, assert_exact(f"range_scan_rows {label}",
+                                    rs.range_scan_rows_cuda,
+                                    rs.range_scan_rows_plain, keys, vals,
+                                    nodes, cnt, lo, hi, cap))
+        _, _, n_match = rs.range_scan_rows_cuda(keys, vals, nodes, cnt, lo,
+                                                hi, cap)
+        assert (n_match[kind == 1] == 0).all(), f"{label}: lo > hi matched"
+        assert (n_match[kind == 5, 0] == cap).all() and \
+            (n_match[kind == 6, 0] == cap + 1).all(), \
+            f"{label}: spans of cap and cap + 1 keys"
+        for r in (c % keys.shape[0], (c + len(shapes)) % keys.shape[0]):
+            err = max(err, assert_exact(f"range_scan {label} row {r}",
+                                        rs.range_scan_cuda, rs.range_scan_plain,
+                                        keys[r], vals[r], lo, hi,
+                                        max_results=cap))
+        n_checks += 3
+    return err, n_checks
+
+
+def range_sets(g, dev, tkeys, tcounts, shape: str, n_sets: int) -> list:
+    """Candidate sets (nodes, counts, lo, hi, cap) of one shape over the
+    4096-row table.  ``1024``: phase 1's B=1024, M=8, cap=128: random rows,
+    spans up to 2^23 from the first candidate's middle key, the first 24
+    queries inverted, on a duplicated boundary key and truncated.
+    ``ycsb-e``: the ycsb-e path's launch, YCSB_E_B ranges padded to
+    YCSB_E_PAD by repeating the last, YCSB_E_M candidates of which 6 to 12
+    real nodes and the rest padding (count 0), spans up to 2^22 (a few dozen
+    keys a node row), cap YCSB_E_CAP."""
+    T = tkeys.shape[0]
+    sets = []
+    for _ in range(n_sets):
+        if shape == "1024":
+            B, M, cap, span_max = 1024, 8, 128, 2**23
+        else:
+            B, M, cap, span_max = YCSB_E_PAD, YCSB_E_M, YCSB_E_CAP, 2**22
+        nodes = torch.randint(0, T, (B, M), generator=g, device=dev,
+                              dtype=torch.int32)
+        ncnt = tcounts[nodes.long()]
+        if shape == "ycsb-e":
+            real = torch.randint(6, 13, (B, 1), generator=g, device=dev)
+            pad = torch.arange(M, device=dev)[None, :] >= real
+            nodes = torch.where(pad, 0, nodes)
+            ncnt = torch.where(pad, 0, ncnt)
+        lo = tkeys[nodes[:, 0].long(), (ncnt[:, 0].long() // 2)].clamp(max=2**31)
+        span = torch.randint(0, span_max, (B,), generator=g, device=dev)
+        hi = (lo + span).clamp(max=KEY_MAX - 1)
+        if shape == "1024":
+            lo[:8] = lo[:8].clamp(min=1)
+            hi[:8] = lo[:8] - 1                             # inverted: empty
+            lo[8:16] = tkeys[nodes[8:16, 0].long(), 0]      # boundary dups
+            hi[8:16] = lo[8:16]
+            hi[16:24] = KEY_MAX - 1                         # truncation
+            lo[16:24] = 0
+        else:                                               # the padding
+            last = YCSB_E_B - 1
+            nodes[last:], ncnt[last:] = nodes[last], ncnt[last]
+            lo[last:], hi[last:] = lo[last], hi[last]
+        sets.append((nodes, ncnt, lo.contiguous(), hi.contiguous(), cap))
+    return sets
+
+
+def range_work(ncnt, n_match, cap: int) -> tuple:
+    """(bytes, ops) of one range launch: 8 bytes per key the two bounds read
+    as binary searches, each matched pair gathered once, the candidates'
+    inputs, and every output slot written once."""
+    B, M = ncnt.shape
+    reads = 2 * search_len(ncnt).sum().item()
+    gathered = n_match.clamp(max=cap).sum().item()
+    nbytes = (8 * reads + 12 * gathered + B * M * (4 + 4 + 4) + B * 16
+              + B * M * cap * 12)
+    return nbytes, reads * 6 + B * M * cap * 3
+
+
+def range_bound_ms(ncnt, n_match, cap: int) -> float:
+    nbytes, nops = range_work(ncnt, n_match, cap)
+    return max(nbytes / PEAK_BYTES_S, nops / PEAK_OPS_S) * 1e3
+
+
+def range_timings(g, dev, tkeys, tvals, tcounts, label: str) -> dict:
+    """``range_scan_rows`` at phase 1's shape and the ycsb-e path's, warm (20
+    calls on one set) and cold (one call on each of 16 or 8 sets, other
+    rows each, whose outputs alone pass 64 MB), the first sets checked bit
+    for bit."""
+    from repro_torch.kernels import range_scan as rs
+
+    scan = lambda s: rs.range_scan_rows_cuda(tkeys, tvals, *s)
+    out = {}
+    for shape, n_sets in (("1024", 16), ("ycsb-e", 8)):
+        sets = range_sets(g, dev, tkeys, tcounts, shape, n_sets)
+        for s in sets[:2]:
+            assert_exact(f"range_scan_rows {label} {shape}",
+                         rs.range_scan_rows_cuda, rs.range_scan_rows_plain,
+                         tkeys, tvals, *s)
+        nodes, ncnt, _, _, cap = sets[0]
+        n_match = scan(sets[0])[2]
+        warm = device_ms(lambda: scan(sets[0]), 20)
+        cold = graph_ms([lambda s=s: scan(s) for s in sets])
+        out[shape] = (warm, cold, range_bound_ms(ncnt, n_match, cap))
+        log(f"  range_scan_rows {label} {shape}: B={nodes.shape[0]} "
+            f"M={nodes.shape[1]} cap={cap}: warm {warm:.5f} ms, cold {cold:.5f} ms, bound "
+            f"{out[shape][2]:.6f} ms")
+    return out
+
+
 # --------------------------------------------------------- attention sweeps
 def pa_inputs(g, dev, B, KVH, G, D, S, P, MP, qdt, kvdt, lens=None):
     randn = lambda *shape: torch.randn(shape, generator=g, device=dev)
@@ -616,40 +976,46 @@ def pa_serving_sets(g, dev, layers: int = 8) -> list:
 
 def pa_timings(sets, label: str) -> tuple:
     """``paged_attention`` at the serving shapes: every set checked against
-    the plain version (bf16 3e-2), then warm (20 calls on one set) and cold
-    (one call on each layer's set)."""
+    the plain version (bf16 3e-2), then warm (20 calls on one set), cold
+    (one call on each layer's set) and per call as the decoder makes it
+    (200 calls from Python between CUDA events)."""
     from repro_torch.kernels import paged_attention as pa
 
     for i, args in enumerate(sets):
         pa_check(f"paged_attention {label} layer {i}", 3e-2, args)
     warm = device_ms(lambda: pa.paged_attention_cuda(*sets[0]), 20)
     cold = graph_ms([lambda s=s: pa.paged_attention_cuda(*s) for s in sets] * 3)
-    log(f"  paged_attention {label}: warm {warm:.5f} ms, cold {cold:.5f} ms")
+    per_call = call_ms(lambda: pa.paged_attention_cuda(*sets[0]), 200)
+    log(f"  paged_attention {label}: warm {warm:.5f} ms, cold {cold:.5f} ms, "
+        f"per call from Python {per_call:.5f} ms")
     return warm, cold
 
 
 def path_shape_timings(dev) -> None:
-    """``sorted_search_rows`` and ``paged_attention`` timed warm and cold at
-    their path's shapes, through whatever ``repro_torch`` is importable:
-    run against a checkout of an earlier commit (its ``src`` first on
-    ``sys.path``), it times that commit's kernels at the same shapes, in
-    the same call as this one's."""
+    """``sorted_search_rows``, ``bloom_probe_rows``, ``range_scan_rows`` and
+    ``paged_attention`` timed warm and cold at their path's shapes, through
+    whatever ``repro_torch`` is importable: run against a checkout of an
+    earlier commit (its ``src`` first on ``sys.path``), it times that
+    commit's kernels at the same shapes, in the same call as this one's."""
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     tkeys, tvals, tcounts = table_rows(g, 4096, dev)
     search_timings(g, dev, tkeys, tvals, tcounts, "(this package)")
+    bloom_timings(g, dev, bloom_table(tkeys), page_bloom_table(g, dev), tkeys,
+                  tcounts, "(this package)")
+    range_timings(g, dev, tkeys, tvals, tcounts, "(this package)")
     del tkeys, tvals
+    torch.cuda.empty_cache()
     pa_timings(pa_serving_sets(g, dev), "(this package)")
     torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------------ phase 1
 def phase_kernels(dev, variants: dict) -> dict:
-    """Every kernel against its plain version; ``variants`` maps "search"
-    and "attention" to {swept value: library} for the two sweeps."""
+    """Every kernel against its plain version; ``variants`` maps each kind
+    of ``SWEEPS`` to {swept value: library}."""
     from repro_torch.kernels import bloom_filter as bf
     from repro_torch.kernels import merge_sorted as ms
-    from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import range_scan as rs
     from repro_torch.kernels import sorted_search as ss
@@ -720,10 +1086,7 @@ def phase_kernels(dev, variants: dict) -> dict:
     # ---- descent: 4096-row table, 4096 queries ---------------------------
     T = 4096
     tkeys, tvals, tcounts = table_rows(g, T, dev)
-    bloom = torch.empty((T, NW), dtype=torch.int64, device=dev)
-    for i in range(0, T, 128):
-        bloom[i:i + 128] = ops.bloom_build(tkeys[i:i + 128], NW * 32, H)
-    bloom[5] = 0                                           # empty filter
+    bloom = bloom_table(tkeys)                             # row 5 empty
     rows_q = torch.randperm(T, generator=g, device=dev).to(torch.int32)
     cnt_q = tcounts[rows_q.long()]
     pick = torch.randint(0, RUN_CAP, (T,), generator=g, device=dev)
@@ -764,38 +1127,53 @@ def phase_kernels(dev, variants: dict) -> dict:
     err = assert_exact("bloom_probe_rows", bf.bloom_probe_rows_cuda,
                        bf.bloom_probe_rows_plain, bloom, rows_q, q,
                        nbits=NW * 32, h=H)
+    e, n_checks = bloom_edge_sweep(g, dev)
+    err = max(err, e)
+    log(f"  bloom edge sweep: {n_checks} kernel calls bit-exact vs plain "
+        f"(h = 1..6 x nbits {NW * 32}, {NW * 32 - 1}, {NW * 32 - 80}, 1009; "
+        f"built, dense, all-zero and last rows; keys 0, KEY_MAX - 1, KEY_MAX; "
+        f"Q = 1, 37, 255, 257, 4096)")
+    page_bloom = page_bloom_table(g, dev)
+    bloom_timings(g, dev, bloom, page_bloom, tkeys, tcounts, "(this build)")
+    for t, lib in variants["bloom"].items():
+        with kernel_library(lib):
+            e, _ = bloom_edge_sweep(g, dev)
+            err = max(err, e)
+            bloom_timings(g, dev, bloom, page_bloom, tkeys, tcounts,
+                          f"BP_THREADS={t}")
+    del page_bloom
     record("bloom_probe_rows", "bloom_filter.cu",
            "src/repro/kernels/bloom_filter.py:64", err,
            lambda: bf.bloom_probe_rows_cuda(bloom, rows_q, q, nbits=NW * 32, h=H),
            lambda: bf.bloom_probe_rows_plain(bloom, rows_q, q, nbits=NW * 32, h=H),
            None, nbytes=T * (H * 8 + 8 + 4 + 1), nops=T * H * 12)
 
-    B, M, cap = 1024, 8, 128
-    nodes = torch.randint(0, T, (B, M), generator=g, device=dev,
-                          dtype=torch.int32)
-    ncnt = tcounts[nodes.long()]
-    lo = tkeys[nodes[:, 0].long(), (ncnt[:, 0].long() // 2)].clamp(max=2**31)
-    span = torch.randint(0, 2**23, (B,), generator=g, device=dev)
-    hi = (lo + span).clamp(max=KEY_MAX - 1)
-    lo[:8] = lo[:8].clamp(min=1)
-    hi[:8] = lo[:8] - 1                                     # inverted: empty
-    lo[8:16] = tkeys[nodes[8:16, 0].long(), 0]              # boundary dups
-    hi[8:16] = lo[8:16]
-    hi[16:24] = KEY_MAX - 1                                 # truncation
-    lo[16:24] = 0
+    nodes, ncnt, lo, hi, cap = range_sets(g, dev, tkeys, tcounts, "1024", 1)[0]
     err = assert_exact("range_scan_rows", rs.range_scan_rows_cuda,
                        rs.range_scan_rows_plain, tkeys, tvals, nodes, ncnt,
-                       lo.contiguous(), hi.contiguous(), cap)
+                       lo, hi, cap)
     _, _, n_match = rs.range_scan_rows_cuda(tkeys, tvals, nodes, ncnt, lo, hi, cap)
     assert (n_match[:8] == 0).all() and (n_match[16:24] > cap).any()
-    gathered = n_match.clamp(max=cap).sum().item()
-    reads = 2 * search_len(ncnt).sum().item()
+    e, n_checks = range_edge_sweep(g, dev)
+    err = max(err, e)
+    log(f"  range edge sweep: {n_checks} kernel calls bit-exact vs plain "
+        f"(counts {RANGE_COUNTS}; lo > hi; lo = hi on a duplicated key; "
+        f"[0, KEY_MAX - 1], [0, KEY_MAX]; spans of cap and cap + 1; cap 1, 3, "
+        f"64, 128, 130, 256; B x M = 1, 37, 256; padded candidates; the "
+        f"one-run form over KEY_MAX padding)")
+    range_timings(g, dev, tkeys, tvals, tcounts, "(this build)")
+    for kind, macro in (("range lanes", "RS_W"), ("range warps", "RS_WARPS")):
+        for w, lib in variants[kind].items():
+            with kernel_library(lib):
+                e, _ = range_edge_sweep(g, dev)
+                err = max(err, e)
+                range_timings(g, dev, tkeys, tvals, tcounts, f"{macro}={w}")
+    nbytes, nops = range_work(ncnt, n_match, cap)
     record("range_scan_rows", "range_scan.cu",
            "src/repro/kernels/range_scan.py:116", err,
            lambda: rs.range_scan_rows_cuda(tkeys, tvals, nodes, ncnt, lo, hi, cap),
            lambda: rs.range_scan_rows_plain(tkeys, tvals, nodes, ncnt, lo, hi, cap),
-           None, nbytes=8 * reads + 12 * gathered + B * M * (4 + 4 + 4)
-           + B * 16 + B * M * cap * 12, nops=reads * 6 + B * M * cap * 3)
+           None, nbytes=nbytes, nops=nops)
 
     # ---- the one-run entry points (Pallas contracts; off the main path) --
     run, rv, rc = tkeys[2], tvals[2], int(tcounts[2])
@@ -1038,7 +1416,24 @@ def phase_main_path(dev, args) -> dict:
     wl_e = make_workload("ycsb-e", preload=args.preload, key_space=key_space,
                          n_ops=args.range_ops, batch_size=1024, seed=1,
                          range_selectivity=400 / key_space)
-    rng_rates, rng_tput = run_mix(engine, wl_e, oracle, OpKind, "ycsb-e")
+    # the shapes of the range launches, for phase 1's ycsb-e timing
+    shapes, live = collections.Counter(), []
+    real_range = ops.range_scan_rows
+
+    def logged_range(table_keys, table_vals, nodes, counts, lo, hi, cap):
+        shapes[(*nodes.shape, cap)] += 1
+        live.append((counts > 0).sum(dim=1).float().mean())    # no sync
+        return real_range(table_keys, table_vals, nodes, counts, lo, hi, cap)
+
+    ops.range_scan_rows = logged_range
+    try:
+        rng_rates, rng_tput = run_mix(engine, wl_e, oracle, OpKind, "ycsb-e")
+    finally:
+        ops.range_scan_rows = real_range
+    log("  ycsb-e range_scan_rows launches by (B, M, cap): "
+        + ", ".join(f"{k}: {v}" for k, v in sorted(shapes.items()))
+        + f"; candidates with keys per query, mean "
+        f"{float(torch.stack(live).mean()):.3f}")
     engine.drain()
     torch.cuda.synchronize()
     launches = ops.launch_counts()
@@ -1263,13 +1658,14 @@ def phase_exact(dev, args) -> None:
 def build_kernels(tmp: str) -> dict:
     """Build the kernel library and, beside it, the ptxas reports and the
     swept variants (all ``nvcc`` processes started together); print the
-    reports.  Returns {"search": {W: lib}, "attention": {CTAs: lib}}."""
+    reports.  Returns {kind: {swept value: lib}} for the kinds of
+    ``SWEEPS``."""
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
     reports = {src: ptxas_report(src, tmp) for src in PTXAS_SOURCES}
     builds = variant_builds(tmp)
-    variants = {"search": {}, "attention": {}}
+    variants = {kind: {} for _, _, kind in SWEEPS.values()}
     try:
         lib = _build.build()
         _build.library()
@@ -1282,8 +1678,7 @@ def build_kernels(tmp: str) -> dict:
             out, _ = proc.communicate(timeout=600)
             if proc.returncode:
                 raise RuntimeError(f"nvcc -D{macro}={value} {src} failed:\n{out}")
-            kind = "search" if macro == "SS_W" else "attention"
-            variants[kind][value] = load_variant(so)
+            variants[SWEEPS[macro][2]][value] = load_variant(so)
     finally:                   # no compiler outlives a failed build
         for proc in [*reports.values(), *(b[-1] for b in builds)]:
             if isinstance(proc, subprocess.Popen) and proc.poll() is None:

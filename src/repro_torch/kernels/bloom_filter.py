@@ -12,10 +12,13 @@ and the per-level probe that ``_query_batch_impl`` inlines
 Filter build and the O(batch) update stay plain PyTorch (``ref.py``): the
 JAX package leaves them to XLA too.
 
-What bounds it on the H100: h dependent 8-byte word gathers per query plus
-~20 integer operations; 4096 queries move ~100 KB, so a launch is latency-
-and launch-bound.  The simple design leaves for later: folding the probe
-into a fused descent kernel, and uint32 word storage (half the bytes).
+What bounds it on the H100: latency.  A query moves ~40 bytes; what it
+waits on is its dependent device-memory round trips.  The kernel is a
+template on h (1-6), fully unrolled: a thread computes all h positions and
+issues all h word loads before it tests a bit, so a query waits one round
+trip for its row and key and one for its words.  Left for later: folding
+the probe into a fused descent kernel, and uint32 word storage (half the
+bytes).
 """
 from __future__ import annotations
 

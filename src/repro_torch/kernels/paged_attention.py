@@ -106,6 +106,32 @@ def _tickets(dev, n: int):
     return buf
 
 
+#: per device, the split-K workspace (each split's m, l and acc); launches
+#: on one stream use it in turn, so it only grows
+_workspaces: dict = {}
+
+
+def _workspace(dev, n: int):
+    buf = _workspaces.get(dev)
+    if buf is None or buf.numel() < n:
+        buf = torch.empty(max(n, 1), dtype=torch.float32, device=dev)
+        _workspaces[dev] = buf
+    return buf
+
+
+#: split count per (kernel library, B, KVH, MP): the launcher's rule, asked
+#: of the library once per shape (a swept variant's rule may differ)
+_split_counts: dict = {}
+
+
+def _splits(B: int, KVH: int, MP: int) -> int:
+    lib = _build.library()
+    key = (lib, B, KVH, MP)
+    if key not in _split_counts:
+        _split_counts[key] = lib.paged_attention_splits(B, KVH, MP)
+    return _split_counts[key]
+
+
 def check_alignment(k_pages, v_pages) -> None:
     """Raise unless the kernel's 16-byte copies fit: both page tensors start
     on a 16-byte boundary and a page (S*D elements) is a multiple of 16
@@ -148,9 +174,8 @@ def paged_attention_cuda(q, k_pages, v_pages, block_tables, seq_lens):
     _check_tables(block_tables, P)
     out = torch.empty_like(q)
     if q.numel():
-        splits = _build.library().paged_attention_splits(B, KVH, MP)
-        ws = torch.empty(B * KVH * splits * G * (D + 2) if splits > 1 else 0,
-                         dtype=torch.float32, device=dev)
+        splits = _splits(B, KVH, MP)
+        ws = _workspace(dev, B * KVH * splits * G * (D + 2) if splits > 1 else 0)
         _build.launch("paged_attention_launch", dev, q.data_ptr(),
                       k_pages.data_ptr(), v_pages.data_ptr(),
                       block_tables.data_ptr(), seq_lens.data_ptr(),

@@ -15,11 +15,14 @@ and the multi-run search + gather that ``_range_query_batch_impl`` inlines
 The freshness and tombstone pass that follows in the descent stays a
 stable ``torch.sort``: JAX runs it in XLA.
 
-What bounds it on the H100: the gather writes 12 bytes per output slot and
-reads as many from the matched spans; at B=1024, M=8, cap=128 that is
-~25 MB, ~8 us at 3.35 TB/s.  The simple design (thread 0 searches while the
-block waits) leaves for later: warp-cooperative bounds and skipping the
-gather of slots past a candidate's span.
+What bounds it on the H100: memory traffic.  The gather writes 12 bytes per
+output slot (the ycsb-e path's launch, B=1024, M=16, cap=256: 50 MB, ~15
+us at 3.35 TB/s), and a k-ary search pays a 32-byte sector for every key
+it probes.  The kernel gives each candidate a group of 8 lanes: its two
+halves find both bounds at once by a 4-lane k-ary search (7 dependent
+rounds over a 21,504-key row, 4 sectors each), then the group writes the
+candidate's slots with 16-byte stores, KEY_MAX / 0 past the span without
+a load.
 """
 from __future__ import annotations
 

@@ -263,6 +263,35 @@ def test_bloom_probe_rows_matches_jax_per_row(rng):
         assert np.array_equal(np.asarray(want), got[torch.from_numpy(sel)].numpy())
 
 
+@pytest.mark.parametrize("nbits", [8192, 8177])
+@pytest.mark.parametrize("h", [1, 2, 3, 4, 5, 6])
+def test_bloom_probe_rows_matches_jax_per_row_hashes(rng, h, nbits):
+    """Every hash count the kernel instantiates, and an nbits that is not a
+    multiple of 32 (the filters are 256-word rows built at 8192 bits, one
+    of them dense so that every h has hits); the one-filter form through
+    the Pallas kernel in interpret mode."""
+    R, Q = 3, 600
+    sets = [rng.choice(2**31, 300, replace=False).astype(np.uint32)
+            for _ in range(R)]
+    table = np.stack([np.asarray(jref.bloom_build_ref(jnp.asarray(s), 8192, h))
+                      for s in sets])
+    table[2] = (rng.random((256, 32)) < 0.9).astype(np.uint32) @ (
+        np.uint32(1) << np.arange(32, dtype=np.uint32))
+    rows = rng.integers(0, R, Q).astype(np.int32)
+    q = np.where(rng.random(Q) < 0.5, np.stack(sets)[rows, rng.integers(0, 300, Q)],
+                 rng.integers(0, 2**32, Q)).astype(np.uint32)
+    q[:3] = [0, KEY_MAX - 1, KEY_MAX]
+    got = tops.bloom_probe_rows(_k(table), _v(rows), _k(q), nbits=nbits, h=h)
+    want = np.stack([np.asarray(jref.bloom_probe_ref(jnp.asarray(table[r]),
+                                                     jnp.asarray(q), nbits, h))
+                     for r in range(R)])[rows, np.arange(Q)]
+    assert np.array_equal(want, got.numpy())
+    assert got[torch.from_numpy(rows == 2)].any()
+    _same(jops.bloom_probe(jnp.asarray(table[2]), jnp.asarray(q), nbits=nbits,
+                           h=h),
+          tops.bloom_probe(_k(table[2]), _k(q), nbits=nbits, h=h))
+
+
 # -------------------------------------------------------------- range scan
 def _scan_both(run, vals, lo, hi, maxr):
     jk, jv, jc = jops.range_scan(jnp.asarray(run), jnp.asarray(vals),
@@ -331,6 +360,79 @@ def test_range_scan_rows_matches_jax_per_candidate(rng):
             _same(jk[0], tk[b, m])
             _same(jv[0], tv[b, m])
             assert int(np.asarray(jc)[0]) == int(tn[b, m])
+
+
+#: row counts at the edges of the kernel's k-ary windows (4-32 lanes a
+#: bound) and the extremes of a 96-slot row
+_EDGE_COUNTS = [0, 1, 3, 4, 5, 7, 8, 9, 15, 16, 17, 31, 32, 33, 95, 96]
+
+
+@pytest.mark.parametrize("cap,hi_kind", [(3, "KEY_MAX"), (3, "KEY_MAX-1"),
+                                         (130, "KEY_MAX"), (64, "KEY_MAX-1"),
+                                         (7, "random")])
+def test_range_scan_rows_edges_match_jax(rng, cap, hi_kind):
+    """Counts at the k-ary window edges, cap not a multiple of 4, hi at
+    KEY_MAX and KEY_MAX - 1, and -1-padded candidates passed as the range
+    descent passes them (node clamped to 0, count 0)."""
+    row_len, B, M = 96, 40, 4
+    tab = [_row(rng, c, row_len) for c in _EDGE_COUNTS]
+    keys = np.stack([t[0] for t in tab])
+    vals = np.stack([t[1] for t in tab])
+    counts_row = np.array(_EDGE_COUNTS, np.int32)
+    nodes = rng.integers(0, len(tab), (B, M)).astype(np.int32)
+    nodes[::3, M // 2:] = -1
+    lo = np.where(rng.random(B) < 0.5, 0,
+                  rng.integers(0, 2**31, B)).astype(np.uint32)
+    hi = {"KEY_MAX": np.full(B, KEY_MAX, np.uint32),
+          "KEY_MAX-1": np.full(B, KEY_MAX - 1, np.uint32),
+          "random": (lo + rng.integers(0, 2**30, B)).astype(np.uint32)}[hi_kind]
+    nid = np.maximum(nodes, 0)
+    cnt = np.where(nodes >= 0, counts_row[nid], 0).astype(np.int32)
+    tk, tv, tn = tops.range_scan_rows(_k(keys), _v(vals), _v(nid), _v(cnt),
+                                      _k(lo), _k(hi), cap)
+    assert tk.shape == (B, M, cap)
+    # the reference over each row's live prefix, KEY_MAX after it (a padded
+    # candidate: none live), every query at once
+    ref = {}
+    for r, c in {(0, 0), *((r, int(counts_row[r])) for r in range(len(tab)))}:
+        run = np.full(row_len + 1, KEY_MAX, np.uint32)
+        run[:c] = keys[r, :c]
+        rv = np.zeros(row_len + 1, np.int32)
+        rv[:c] = vals[r, :c]
+        ref[r, c] = [np.asarray(x) for x in jref.range_scan_ref(
+            jnp.asarray(run), jnp.asarray(rv), jnp.asarray(lo), jnp.asarray(hi),
+            cap)]
+    for b in range(B):
+        for m in range(M):
+            jk, jv, jc = ref[int(nid[b, m]), int(cnt[b, m])]
+            _same(jk[b], tk[b, m])
+            _same(jv[b], tv[b, m])
+            assert int(jc[b]) == int(tn[b, m])
+    assert (tn[torch.from_numpy(nodes < 0)] == 0).all()
+    # the one-run form (Pallas, interpret mode) over a row and its padding
+    r = int(np.argmax(counts_row == 33))
+    _scan_both(keys[r], vals[r], lo, hi, cap)
+
+
+@pytest.mark.parametrize("n", [1, 40, 1000])
+def test_range_end_is_one_lower_bound(rng, n):
+    """The identity the range kernel's one-run form relies on: over a run
+    with KEY_MAX padding, min(ub(hi), n_live) == lb(min(hi, KEY_MAX - 1) +
+    1), so the live prefix needs no search of its own."""
+    for live in sorted({0, 1, n // 2, n}):
+        run = np.full(n, KEY_MAX, np.uint32)
+        run[:live] = np.sort(rng.integers(0, 50, live) * (2**26))
+        hi = np.concatenate([rng.integers(0, 2**32, 64),
+                             run[:live], run[:live] - 1,
+                             [0, KEY_MAX - 1, KEY_MAX]]).astype(np.uint32)
+        lo = np.zeros_like(hi)
+        rk = _k(run)
+        end = torch.searchsorted(rk, _k(hi).clamp(max=KEY_MAX - 1) + 1)
+        _, _, count = tref.range_scan_ref(rk, _v(np.zeros(n)), _k(lo), _k(hi))
+        want = torch.minimum(torch.searchsorted(rk, _k(hi), right=True),
+                             (rk != KEY_MAX).sum())
+        assert torch.equal(end, want)
+        assert torch.equal(count, end.to(torch.int32))     # lo = 0: start 0
 
 
 # --------------------------------------------------------- paged attention
