@@ -37,11 +37,26 @@ network)::
 5. Exactness at full width, depth cut to 4 layers, fp32: the engine's
    greedy tokens for 2 requests of 64-token prompts (8 new tokens) must
    equal the contiguous-cache ``decode_step``'s.
+6. Durable open-loop ingest with a crash and a restart: ``torch-nbtree``
+   at phase 2's shape under ``repro_torch.ingest.IngestFrontend`` with a
+   WAL and LSN-keyed snapshots on local disk; a preload of 2^22 keys over
+   2^24, then ``insert-heavy`` at 20,000 ops/s (Poisson, on the frontend's
+   clock) killed right after the 2048th WAL fsync (acked, not applied).
+   ``repro_torch.wal.recover`` must rebuild exactly the preload plus the
+   acked commits (a numpy oracle); a fresh frontend on the recovered
+   engine serves a second trace and must continue the LSN chain without a
+   gap; a second recovery must equal the oracle of both acked prefixes.
+   Prints the measured wall times (load, fsyncs, snapshots, maintenance
+   units, recoveries) and the device's idle share over the second trace;
+   the frontend's per-op latencies on this engine are a virtual service
+   model and are printed under that name.
 
-Kernel launch counters are zeroed just before each path (2-3, 4) and read
-just after; every kernel must have launched on its own path.  Prints a
-``kernels`` JSON line, the card's name and power limit, and, last,
-``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
+Kernel launch counters are zeroed just before each path (2-3, 4, 6) and
+read just after; every kernel must have launched on its own path (and the
+four NB-tree kernels of the write side and the point reads on phase 6's
+too).  Prints a ``kernels`` JSON line, the card's name and power limit,
+and, last, ``{"ok": true, "device": {...}}``.  Any failure raises and
+exits non-zero.
 """
 from __future__ import annotations
 
@@ -51,6 +66,7 @@ import contextlib
 import ctypes
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -67,6 +83,10 @@ KEY_MAX = 0xFFFFFFFF
 RUN_CAP, NW, H = 21504, 6784, 3      # f=4, sigma=4096 node-row shape
 #: the path whose launches a kernel's row reports (the NB-tree path if absent)
 KERNEL_PATH = {"paged_attention": "serve"}
+#: kernels phase 6's durable ingest path must launch (its write side and
+#: its point reads)
+INGEST_KERNELS = ("merge_sorted", "merge_sorted_batch", "sorted_search_rows",
+                  "bloom_probe_rows")
 
 
 def log(*a):
@@ -1655,6 +1675,195 @@ def phase_exact(dev, args) -> None:
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------ phase 6
+def ingest_oracle(preload, acked):
+    """Live table after ``preload`` and the acked commits in LSN order:
+    numpy last-writer-wins (the last op on a key decides; a delete
+    removes it), independent of the port."""
+    from repro_torch.core.engine_api import OpKind
+
+    if not acked:
+        return preload.keys, preload.vals
+    kinds = np.concatenate([a[1] for a in acked])
+    keys = np.concatenate([a[2] for a in acked])
+    vals = np.concatenate([a[3] for a in acked])
+    uk, first = np.unique(keys[::-1], return_index=True)
+    last_kind, last_val = kinds[::-1][first], vals[::-1][first]
+    keep = ~np.isin(preload.keys, uk)
+    ins = last_kind == int(OpKind.INSERT)
+    out_k = np.concatenate([preload.keys[keep], uk[ins]])
+    out_v = np.concatenate([preload.vals[keep], last_val[ins]])
+    order = np.argsort(out_k, kind="stable")
+    return out_k[order], out_v[order]
+
+
+def phase_ingest(dev) -> dict:
+    """Phase 6 (see the module docstring); returns the launch counts of
+    the phase's drive, recoveries included."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.engine_api import make_engine
+    from repro_torch.ingest import (DurabilityConfig, FrontendConfig,
+                                    IngestFrontend, PoissonArrivals,
+                                    make_trace)
+    from repro_torch.kernels import ops
+    from repro_torch.wal import (CrashPoint, FaultInjector, SimulatedCrash,
+                                 recover)
+    from repro_torch.workloads import make_workload
+
+    preload, key_space, crash_at, rate = 1 << 22, 1 << 24, 2048, 20_000.0
+    marks = {}
+
+    def engine():
+        eng = make_engine("torch-nbtree", f=4, sigma=4096, max_nodes=2048,
+                          max_results=128, device=dev)
+        real_drain = eng.drain
+
+        def timed_drain():          # recover() drains once, after the snapshot
+            real_drain()
+            marks.setdefault(id(eng), time.perf_counter())
+
+        eng.drain = timed_drain
+        marks["made"] = time.perf_counter()
+        return eng
+
+    def recovered(label, acked):
+        marks.clear()
+        rr = recover(root, engine)
+        torch.cuda.synchronize()
+        snap_s = marks.get(id(rr.engine), marks["made"]) - marks["made"]
+        replay_s = rr.recover_wall_s - snap_s
+        n = rr.snapshot_pairs               # the engine's pad rule (apply)
+        padded = 1 << max(0, n - 1).bit_length()
+        padded = padded if padded - n < rr.engine.idx.sigma else n
+        log(f"  {label}: recover_wall_s {rr.recover_wall_s:.3f} (snapshot "
+            f"load + drain {snap_s:.3f} s: {rr.snapshot_pairs} pairs @ lsn "
+            f"{rr.snapshot_lsn}, applied as one batch of {padded} inserts; "
+            f"WAL replay {replay_s:.3f} s: "
+            f"{rr.replayed_commits} commits, {rr.replayed_ops} ops, "
+            f"{rr.replayed_ops / max(replay_s, 1e-9):.1f} ops/s); "
+            f"{(rr.snapshot_pairs + rr.replayed_ops) / rr.recover_wall_s:.1f}"
+            " ops/s recovered")
+        keys, vals = rr.engine.dump_live()
+        want_k, want_v = ingest_oracle(trace1.preload, acked)
+        assert np.array_equal(keys, want_k) and np.array_equal(vals, want_v), \
+            f"{label}: recovered table != oracle"
+        st = rr.engine.stats()
+        assert rr.last_lsn == st.applied_lsn == acked[-1][0], \
+            (rr.last_lsn, st.applied_lsn, acked[-1][0])
+        log(f"  {label}: recovered table == oracle ({len(keys)} pairs); "
+            f"last_lsn == applied_lsn == last acked lsn {rr.last_lsn}")
+        return rr
+
+    def served(label, fe, t_wall, n_ops):
+        rep_st = fe.engine.stats()
+        fs = fe.wal.fsync_s
+        n = len(fe.acked)
+        log(f"  {label}: {n} durable commits ({n_ops} ops arrived) in "
+            f"{t_wall:.3f} s of serving ({n / t_wall:.1f} commits/s wall); "
+            f"fsync p50 / p99 {fs.quantile(0.5) * 1e3:.3f} / "
+            f"{fs.quantile(0.99) * 1e3:.3f} ms, p100 "
+            f"{fs.max * 1e3:.3f} ms ({fs.count} fsyncs); snapshots "
+            + ", ".join(f"{s:.3f}" for s in fe.checkpoint_wall_s)
+            + f" s; maintain units {rep_st.maintain_units}: p50 / p99 / p100 "
+            f"{rep_st.maintain_unit_p50_s * 1e3:.3f} / "
+            f"{rep_st.maintain_unit_p99_s * 1e3:.3f} / "
+            f"{rep_st.maintain_unit_p100_s * 1e3:.3f} ms")
+
+    cfg = FrontendConfig()                  # commit_ops 64, max_queue 4096
+    wl1 = make_workload("insert-heavy", preload=preload,
+                        key_space=key_space, n_ops=1 << 18, batch_size=4096,
+                        seed=2)
+    trace1 = make_trace(wl1, PoissonArrivals(rate))
+    wl2 = make_workload("insert-heavy", preload=0, key_space=key_space,
+                        n_ops=1 << 16, batch_size=4096, seed=3)
+    trace2 = make_trace(wl2, PoissonArrivals(rate))
+    root = tempfile.mkdtemp(prefix="chip_smoke_ingest_")
+    durability = DurabilityConfig(root, checkpoint_every_commits=1024)
+    try:
+        ops.reset_launch_counts()
+        # ---- trace 1, killed after the 2048th fsync (acked, not applied) --
+        inj = FaultInjector(CrashPoint.AFTER_WAL_FSYNC, at_occurrence=crash_at)
+        fe1 = IngestFrontend(engine(), cfg, durability=durability,
+                             injector=inj)
+        t0 = time.perf_counter()
+        try:
+            fe1.run(trace1)
+        except SimulatedCrash:
+            pass
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        assert inj.fired and len(fe1.acked) == crash_at, len(fe1.acked)
+        log(f"  preload: {len(trace1.preload)} distinct keys in "
+            f"{fe1.preload_wall_s:.3f} s "
+            f"({len(trace1.preload) / fe1.preload_wall_s:.1f} inserts/s, one "
+            f"batch + drain); its snapshot {fe1.checkpoint_wall_s[0]:.3f} s")
+        served("trace 1 (killed)", fe1,
+               t_run - fe1.preload_wall_s - fe1.checkpoint_wall_s[0],
+               len(trace1))
+        acked1 = fe1.acked
+        del fe1, inj
+        torch.cuda.empty_cache()
+
+        rr1 = recovered("recovery 1", acked1)
+        # ---- restart: a fresh frontend on the recovered engine ------------
+        fe2 = IngestFrontend(rr1.engine, cfg, durability=durability)
+        assert fe2.last_acked_lsn == rr1.last_lsn
+        # the profiled window: commits 256..767 (one maintain call a commit)
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        window, calls = [0.0, 0.0], [0]
+        real_maintain = fe2.engine.maintain
+
+        def windowed_maintain(budget=1):
+            if calls[0] in (256, 768):
+                torch.cuda.synchronize()
+                window[calls[0] == 768] = time.perf_counter()
+                (prof.start if calls[0] == 256 else prof.stop)()
+            calls[0] += 1
+            return real_maintain(budget)
+
+        fe2.engine.maintain = windowed_maintain
+        t0 = time.perf_counter()
+        rep2 = fe2.run(trace2)
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        del fe2.engine.maintain
+        assert calls[0] > 768, calls
+        lsns = [a[0] for a in fe2.acked]
+        assert lsns[0] == rr1.last_lsn + 1 and lsns == list(
+            range(lsns[0], lsns[0] + len(lsns))), "LSN chain broken"
+        served("trace 2 (after the restart)", fe2, t_run, len(trace2))
+        e2e = rep2["per_kind_e2e"]["insert"]
+        log(f"  trace 2: LSNs {lsns[0]}..{lsns[-1]} continue the chain "
+            f"(last before the restart {rr1.last_lsn}); shed "
+            f"{rep2['n_shed']}; virtual service model (not "
+            f"measured): insert e2e p50 {e2e['p50_s'] * 1e3:.3f} ms, p99.9 "
+            f"{e2e['p999_s'] * 1e3:.3f} ms")
+        t_window = window[1] - window[0]
+        share, top = busy_share(prof, t_window)
+        log("  trace 2 profiled commits 256..767: "
+            + ("device busy share not measured (profiler saw no device time)"
+               if share is None else
+               f"device busy {share:.4f} of {t_window:.3f} s wall (idle "
+               f"{1 - share:.4f}); top kernels by device time: "
+               + "; ".join(f"{k} {f:.3f}" for k, f in top)))
+        acked = acked1 + fe2.acked
+        keys, vals = fe2.engine.dump_live()
+        want_k, want_v = ingest_oracle(trace1.preload, acked)
+        assert np.array_equal(keys, want_k) and np.array_equal(vals, want_v), \
+            "served engine != oracle"
+        del fe2, rr1
+        torch.cuda.empty_cache()
+        rr2 = recovered("recovery 2", acked)
+        del rr2
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return launches
+
+
 def build_kernels(tmp: str) -> dict:
     """Build the kernel library and, beside it, the ptxas reports and the
     swept variants (all ``nvcc`` processes started together); print the
@@ -1732,11 +1941,22 @@ def main() -> int:
     paths["serve"] = phase_serve(dev, args)
     log("phase 5: engine vs contiguous decode, exact tokens")
     phase_exact(dev, args)
+    log("phase 6: durable open-loop ingest over torch-nbtree, crash and "
+        "restart")
+    t6 = time.perf_counter()
+    paths["ingest"] = phase_ingest(dev)
+    log(f"launches on the ingest path: {json.dumps(paths['ingest'])}; "
+        f"phase 6 took {time.perf_counter() - t6:.1f} s")
     for name_k, row in rows.items():
         path = KERNEL_PATH.get(name_k, "nbtree")
         row["launches"] = paths[path][name_k]
+        row["launches_by_path"] = {p: c[name_k] for p, c in paths.items()
+                                   if c.get(name_k)}
         if not row["launches"]:
             raise AssertionError(f"{name_k} never launched on the {path} path")
+    for name_k in INGEST_KERNELS:
+        if not paths["ingest"][name_k]:
+            raise AssertionError(f"{name_k} never launched on the ingest path")
     print(json.dumps({"kernels": list(rows.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

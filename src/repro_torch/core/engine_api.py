@@ -1,20 +1,28 @@
-"""StorageEngine protocol of the port, and the ``torch-nbtree`` engine.
+"""StorageEngine protocol of the port, its engines and its registry.
 
 The port's own copy of the protocol surface of ``repro/core/engine_api.py``
 (``OpKind``, ``OpBatch``, ``OpResult``, ``EngineStats``, the
-``StorageEngine`` base and an engine registry), plus
-:class:`TorchNBTreeEngine`, the port of ``DeviceNBTreeEngine``: the
-PyTorch/CUDA device tier under the protocol, registered as
-``torch-nbtree``.
+``StorageEngine`` base and an engine registry), plus two tiers:
 
-Semantics are sequential within a batch: op i+1 observes op i.  The engine
-groups maximal same-kind op runs into one device call, which preserves
-them because ``insert_batch`` resolves intra-batch duplicates newest-wins
-and queries cannot appear inside an insert group.
+* :class:`TorchNBTreeEngine`, the port of ``DeviceNBTreeEngine``: the
+  PyTorch/CUDA device tier under the protocol, registered as
+  ``torch-nbtree``;
+* :class:`RefNBTreeEngine` over the host NB-tree (``refimpl``) on the
+  explicit I/O cost model, registered as ``nbtree``, ``nbtree-basic``
+  (no deamortization) and ``nbtree-nobloom``: a sim-clock tier, so an
+  open-loop run over it is a pure function of (trace, config).
 
-Key/value domain: keys are uint32 on the device (carried as uint64 in an
-``OpBatch``), values non-negative int32-representable; ``TOMBSTONE32`` is
-reserved.
+Semantics are sequential within a batch: op i+1 observes op i.  The device
+engine groups maximal same-kind op runs into one device call, which
+preserves them because ``insert_batch`` resolves intra-batch duplicates
+newest-wins and queries cannot appear inside an insert group.
+
+Key/value domain: keys are uint64 on the host tier and uint32 on the device
+(carried as uint64 in an ``OpBatch``), so a stream for both keeps its keys
+in ``[1, 2^31)``; values are non-negative int32-representable.  Reserved:
+the value ``TOMBSTONE32`` (a device delete) and the key ``KEY_MAX32`` =
+``0xFFFFFFFF``, the device's padding sentinel: an inserted key 2^32 - 1
+reads back absent, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -27,10 +35,10 @@ import numpy as np
 import torch
 
 from ..obs.metrics import LogBucketHistogram
+from .cost_model import HDD, CostModel, Device
+from .refimpl import NBTree
+from .sorted_run import KEY_DTYPE, VAL_DTYPE
 from .torch_nbtree import TOMBSTONE32, NBTreeIndex
-
-KEY_DTYPE = np.uint64
-VAL_DTYPE = np.int64
 
 
 class OpKind(enum.IntEnum):
@@ -38,6 +46,10 @@ class OpKind(enum.IntEnum):
     DELETE = 1
     QUERY = 2
     RANGE = 3
+
+
+class UnsupportedOp(RuntimeError):
+    """Raised by an engine that cannot serve an op kind."""
 
 
 @dataclasses.dataclass
@@ -93,6 +105,23 @@ class OpBatch:
         return OpBatch(np.full(len(los), OpKind.RANGE, np.int8), los,
                        np.zeros(len(los), VAL_DTYPE), np.asarray(his, KEY_DTYPE))
 
+    @staticmethod
+    def empty() -> "OpBatch":
+        return OpBatch(np.zeros(0, np.int8), np.zeros(0, KEY_DTYPE),
+                       np.zeros(0, VAL_DTYPE), np.zeros(0, KEY_DTYPE))
+
+    @staticmethod
+    def concat(batches) -> "OpBatch":
+        """Concatenate batches in order (sequential semantics kept); no
+        batches, or only empty ones, give the empty batch."""
+        batches = [b for b in batches if len(b)]
+        if not batches:
+            return OpBatch.empty()
+        return OpBatch(np.concatenate([b.kinds for b in batches]),
+                       np.concatenate([b.keys for b in batches]),
+                       np.concatenate([b.vals for b in batches]),
+                       np.concatenate([b.his for b in batches]))
+
 
 @dataclasses.dataclass
 class OpResult:
@@ -126,7 +155,8 @@ class OpResult:
 class EngineStats:
     """Uniform engine snapshot; every field is cumulative since construction.
 
-    ``io_time_s`` is the engine's accumulated host wall clock.
+    ``io_time_s`` is the engine's charged cost: simulated seconds on the
+    host tier, accumulated host wall clock on the device tier.
     ``total_pairs`` is the logical live pair count, ``physical_pairs`` the
     resident count (stale duplicates and tombstones included).
     ``pending_debt`` is the deferred maintenance still owed.  The ``bloom_*``
@@ -134,8 +164,10 @@ class EngineStats:
     ``maintain_*`` fields time each maintenance work unit on the wall clock
     (percentiles from the bounded log-bucket histogram: exact p100).
     ``device_dispatches`` counts impl calls of this engine's index.
-    ``shards``/``shard_debt``/``applied_lsn`` keep the JAX package's report
-    shape; the port has no sharding or WAL yet, so they hold defaults.
+    ``applied_lsn`` is the highest WAL commit applied (written through
+    :meth:`StorageEngine.note_applied`; 0 outside a durable frontend).
+    ``shards``/``shard_debt`` keep the JAX package's report shape; the
+    port has no sharding yet, so they hold defaults.
     """
 
     engine: str
@@ -167,16 +199,55 @@ class EngineStats:
 
 
 class StorageEngine(abc.ABC):
-    """The engine protocol: ``apply``, ``maintain``/``drain``, observers."""
+    """The engine protocol: ``apply``, ``maintain``/``drain``, observers.
+
+    The default :meth:`apply` runs op by op through four scalar hooks (the
+    host tier); the device engine overrides it wholesale.
+    """
 
     name: str = "engine"
 
     def __init__(self):
         self._counts = {k: 0 for k in OpKind}
+        self.applied_lsn = 0        # highest durably-logged commit applied
 
-    @abc.abstractmethod
     def apply(self, batch: OpBatch) -> OpResult:
         """Apply a batch with sequential semantics; visible results."""
+        n = len(batch)
+        found = np.zeros(n, bool)
+        values = np.full(n, -1, VAL_DTYPE)
+        range_hits: list = [None] * n
+        lat = np.zeros(n, np.float64)
+        for i in range(n):
+            kind = OpKind(int(batch.kinds[i]))
+            k = int(batch.keys[i])
+            if kind is OpKind.INSERT:
+                lat[i] = self._do_insert(k, int(batch.vals[i]))
+            elif kind is OpKind.DELETE:
+                lat[i] = self._do_delete(k)
+            elif kind is OpKind.QUERY:
+                found[i], values[i], lat[i] = self._do_query(k)
+            else:
+                rk, rv, lat[i] = self._do_range(k, int(batch.his[i]))
+                range_hits[i] = (rk, rv)
+            self._counts[kind] += 1
+        return OpResult(batch.kinds.copy(), found, values, range_hits, lat)
+
+    def _do_insert(self, key: int, val: int) -> float:
+        raise UnsupportedOp(f"{self.name} does not support INSERT")
+
+    def _do_delete(self, key: int) -> float:
+        raise UnsupportedOp(f"{self.name} does not support DELETE")
+
+    def _do_query(self, key: int):
+        raise UnsupportedOp(f"{self.name} does not support QUERY")
+
+    def _do_range(self, lo: int, hi: int):
+        raise UnsupportedOp(f"{self.name} does not support RANGE")
+
+    def attach_tracer(self, tracer) -> None:
+        """Attach an ``obs.trace.Tracer``; engines with nothing structured
+        to report ignore it (the device engine forwards it to its index)."""
 
     def maintain(self, budget: int = 1) -> int:
         """Run up to ``budget`` units of deferred work; returns pending debt."""
@@ -187,9 +258,33 @@ class StorageEngine(abc.ABC):
         while self.maintain(64):
             pass
 
+    def note_applied(self, lsn: int) -> None:
+        """Record that every WAL commit up to ``lsn`` has been applied.
+
+        Called by the durable ingest frontend after each group commit's
+        ``apply`` and by WAL replay during recovery; surfaced as
+        ``EngineStats.applied_lsn``.  Monotone: a stale LSN never moves it
+        back.
+        """
+        if lsn > self.applied_lsn:
+            self.applied_lsn = int(lsn)
+
     @abc.abstractmethod
     def dump_live(self) -> tuple:
-        """``(keys, vals)`` of every visible pair, key-sorted."""
+        """``(keys, vals)`` of every visible pair, key-sorted, cost-free:
+        the snapshot primitive of the durability layer."""
+
+    def dump_live_range(self, lo: int, hi: int) -> tuple:
+        """``(keys, vals)`` of visible pairs with ``lo <= key <= hi``
+        (a cost-free observer, like :meth:`dump_live`)."""
+        keys, vals = self.dump_live()
+        a = int(np.searchsorted(keys, np.asarray(lo, KEY_DTYPE), "left"))
+        b = int(np.searchsorted(keys, np.asarray(hi, KEY_DTYPE), "right"))
+        return keys[a:b], vals[a:b]
+
+    def count_live_range(self, lo: int, hi: int) -> int:
+        """Exact number of visible keys in ``[lo, hi]`` (cost-free)."""
+        return len(self.dump_live_range(lo, hi)[0])
 
     @abc.abstractmethod
     def io_time_s(self) -> float:
@@ -208,11 +303,122 @@ class StorageEngine(abc.ABC):
         """Exact number of visible (non-deleted, deduplicated) keys."""
 
 
-def _pad_pow2(a: np.ndarray) -> np.ndarray:
-    """Pad a 1-d array to the next power-of-two length by repeating a[-1]."""
+# =========================================================== cost-model tiers
+class CostModelEngine(StorageEngine):
+    """Adapter base for the host tiers: scalar impl + explicit CostModel."""
+
+    clock = "sim"
+
+    def __init__(self, impl):
+        super().__init__()
+        self.impl = impl
+
+    @property
+    def cm(self) -> CostModel:
+        return self.impl.cm
+
+    def _do_insert(self, key, val):
+        return float(self.impl.insert(key, val))
+
+    def _do_delete(self, key):
+        return float(self.impl.delete(key))
+
+    def _do_query(self, key):
+        v, t = self.impl.query(key)
+        return v is not None, -1 if v is None else int(v), float(t)
+
+    def _do_range(self, lo, hi):
+        rk, rv = self.impl.range_query(lo, hi)
+        return rk, rv, float(self.impl._last_query_time)
+
+    def dump_live(self) -> tuple:
+        # an all-keyspace range scan is exact; the cost counters are saved
+        # and restored so that observing charges nothing.
+        cm = self.cm
+        saved = (cm.seeks, cm.bytes_read, cm.bytes_written, cm.pages)
+        try:
+            rk, rv = self.impl.range_query(0, int(np.iinfo(KEY_DTYPE).max))
+        finally:
+            cm.seeks, cm.bytes_read, cm.bytes_written, cm.pages = saved
+        return (np.asarray(rk, KEY_DTYPE), np.asarray(rv, VAL_DTYPE))
+
+    def count_live(self) -> int:
+        return len(self.dump_live()[0])
+
+    def height(self) -> int:
+        return 1
+
+    def _pending_debt(self) -> int:
+        return 0
+
+    def _bloom_stats(self) -> tuple:
+        """(probes, negative_skips, false_positives); zeros by default."""
+        return (0, 0, 0)
+
+    def io_time_s(self) -> float:
+        return self.cm.time
+
+    def stats(self) -> EngineStats:
+        cm = self.cm
+        probes, skips, fps = self._bloom_stats()
+        return EngineStats(
+            engine=self.name, clock=self.clock, io_time_s=cm.time,
+            io_seeks=cm.seeks, io_bytes_read=cm.bytes_read,
+            io_bytes_written=cm.bytes_written, height=self.height(),
+            total_pairs=self.count_live(),
+            physical_pairs=int(self.impl.total_pairs()),
+            pending_debt=self._pending_debt(),
+            n_inserts=self._counts[OpKind.INSERT],
+            n_deletes=self._counts[OpKind.DELETE],
+            n_queries=self._counts[OpKind.QUERY],
+            n_ranges=self._counts[OpKind.RANGE],
+            bloom_probes=int(probes), bloom_negative_skips=int(skips),
+            bloom_false_positives=int(fps),
+            applied_lsn=self.applied_lsn)
+
+
+class RefNBTreeEngine(CostModelEngine):
+    """The paper-faithful host NB-tree (``refimpl``) under the protocol."""
+
+    name = "nbtree"
+
+    def __init__(self, f: int = 3, sigma: int = 4096, *, device: Device = HDD,
+                 **kw):
+        super().__init__(NBTree(f=f, sigma=sigma, device=device, **kw))
+
+    def maintain(self, budget: int = 1) -> int:
+        """Advance the pending cascade by up to ``budget`` page quanta."""
+        t = self.impl
+        if t._cascade is None:
+            return 0
+        try:
+            for _ in range(budget):
+                next(t._cascade)
+        except StopIteration:
+            t._cascade = None
+            t._frozen = None
+        return 0 if t._cascade is None else 1
+
+    def height(self) -> int:
+        return self.impl.height
+
+    def _pending_debt(self) -> int:
+        return 0 if self.impl._cascade is None else 1
+
+    def _bloom_stats(self) -> tuple:
+        t = self.impl
+        return (t.bloom_probes, t.bloom_negative_skips,
+                t.bloom_false_positives)
+
+
+# ================================================================ device tier
+def _pad_pow2(a: np.ndarray, max_copies: int | None = None) -> np.ndarray:
+    """Pad a 1-d array to the next power-of-two length by repeating a[-1],
+    unless that takes ``max_copies`` or more repeats (then ``a`` as is)."""
     n = len(a)
     target = 1 << max(0, n - 1).bit_length()
-    if n in (0, target):
+    if n in (0, target) or (max_copies is not None
+                            and target - n >= max_copies):
         return a
     return np.concatenate([a, np.repeat(a[-1:], target - n)])
 
@@ -221,12 +427,17 @@ class TorchNBTreeEngine(StorageEngine):
     """The PyTorch/CUDA device tier under the protocol.
 
     ``apply`` groups maximal same-kind op runs into one device call; latency
-    is the group's host wall clock amortized over its ops.  Every group is
-    padded to a power-of-two length, exactly as the JAX engine pads: the
-    padded duplicate insert (the last op repeated verbatim, a blind re-write
-    that newest-wins dedup makes invisible) is part of the physical state
-    the two engines share.  QUERY/RANGE pads repeat the last op and drop
-    the extra outputs.
+    is the group's host wall clock amortized over its ops.  A group is
+    padded to a power-of-two length as the JAX engine pads it: the padded
+    duplicate insert (the last op repeated verbatim, a blind re-write that
+    newest-wins dedup makes invisible) is part of the physical state the
+    two engines share.  QUERY/RANGE pads repeat the last op and drop the
+    extra outputs.  The one exception: an INSERT/DELETE pad of ``sigma`` or
+    more copies (a group far above ``sigma``: a bulk load, a recovery's
+    snapshot) is left out.  The root keeps duplicates, and a flush moves a key's copies
+    as one group, so such a pad would reach one child as a duplicate group
+    larger than any run may take; the JAX engine, which pads it, fails
+    there.  Every group of at most ``sigma`` ops is padded as in JAX.
     """
 
     name = "torch-nbtree"
@@ -257,6 +468,7 @@ class TorchNBTreeEngine(StorageEngine):
         truncated = np.zeros(n, bool)
         lat = np.zeros(n, np.float64)
         kinds = np.asarray(batch.kinds)
+        sigma = self.idx.sigma
         i = 0
         while i < n:
             j = i + 1
@@ -268,11 +480,12 @@ class TorchNBTreeEngine(StorageEngine):
             t0 = time.perf_counter()
             if kind is OpKind.INSERT:
                 self.idx.insert_batch(
-                    _pad_pow2(batch.keys[sl].astype(np.uint32)),
-                    _pad_pow2(batch.vals[sl].astype(np.int32)))
+                    _pad_pow2(batch.keys[sl].astype(np.uint32), sigma),
+                    _pad_pow2(batch.vals[sl].astype(np.int32), sigma))
                 self._sync()
             elif kind is OpKind.DELETE:
-                self.idx.delete_batch(_pad_pow2(batch.keys[sl].astype(np.uint32)))
+                self.idx.delete_batch(
+                    _pad_pow2(batch.keys[sl].astype(np.uint32), sigma))
                 self._sync()
             elif kind is OpKind.QUERY:
                 pres, vals = self.idx.query_batch(
@@ -400,7 +613,8 @@ class TorchNBTreeEngine(StorageEngine):
             maintain_unit_p50_s=mu.quantile(0.50),
             maintain_unit_p99_s=mu.quantile(0.99),
             maintain_unit_p100_s=mu.max if mu.count else 0.0,
-            device_dispatches=self.idx.dispatch_count)
+            device_dispatches=self.idx.dispatch_count,
+            applied_lsn=self.applied_lsn)
 
 
 # =================================================================== registry
@@ -428,4 +642,9 @@ def available_engines() -> tuple:
     return tuple(sorted(_REGISTRY))
 
 
+register_engine("nbtree", RefNBTreeEngine)
+register_engine("nbtree-basic",
+                lambda **kw: RefNBTreeEngine(deamortize=False, **kw))
+register_engine("nbtree-nobloom",
+                lambda **kw: RefNBTreeEngine(use_bloom=False, **kw))
 register_engine("torch-nbtree", TorchNBTreeEngine)

@@ -128,6 +128,36 @@ def _insert_impl(run_keys, run_vals, run_count, bloom, keys, vals, *,
     bloom[0] = ops.bloom_update(bloom[0], bk, nbits, h)
 
 
+def _flush_partition(row_k, piv, count: int, *, sigma: int, run_cap: int):
+    """A flush's duplicate-safe cut and pivot partition of one node's run:
+    ``(moved, starts, lens)``, the pairs moved down and each child's span
+    of them."""
+    # never split a duplicate group across the moved boundary (the fresh
+    # copy flushed down with the stale one left behind would invert the
+    # ancestors-are-fresher rule); if the whole prefix is one key, move the
+    # entire group.
+    moved0 = min(count, sigma)
+    k_cut = row_k[min(max(moved0, 0), run_cap - 1)].reshape(1)
+    if moved0 < count:
+        left = torch.searchsorted(row_k, k_cut)
+        right = torch.searchsorted(row_k, k_cut, right=True)
+        moved = torch.where(left > 0, left.clamp(max=moved0),
+                            right.clamp(max=count))
+    else:
+        moved = torch.full((1,), moved0, dtype=torch.int64,
+                           device=row_k.device)
+    cuts = torch.minimum(torch.searchsorted(row_k, piv), moved)
+    bounds = torch.cat([moved.new_zeros(1), cuts, moved])
+    return moved, bounds[:-1], bounds[1:] - bounds[:-1]
+
+
+def _flush_lens(run_keys, nid: int, piv, count: int, *, sigma: int,
+                run_cap: int):
+    """Each child's share of a flush of ``nid`` (the overflow guard's read)."""
+    return _flush_partition(run_keys[nid], piv, count, sigma=sigma,
+                            run_cap=run_cap)[2]
+
+
 def _flush_impl(run_keys, run_vals, run_count, bloom, nid: int, child_ids,
                 piv, count: int, *, nc: int, leaf: bool, sigma: int,
                 sigma_pad: int, run_cap: int, nbits: int, h: int):
@@ -140,26 +170,10 @@ def _flush_impl(run_keys, run_vals, run_count, bloom, nid: int, child_ids,
     counts and filters bit for bit.  Returns the ``(nc+1,)`` count vector
     (children, then parent): the flush's one device-to-host read.
     """
-    dev = run_keys.device
     row_k, row_v = run_keys[nid], run_vals[nid]
-    # ---- duplicate-safe cut: never split a duplicate group across the
-    # moved boundary (the fresh copy flushed down with the stale one left
-    # behind would invert the ancestors-are-fresher rule); if the whole
-    # prefix is one key, move the entire group.
-    moved0 = min(count, sigma)
-    k_cut = row_k[min(max(moved0, 0), run_cap - 1)].reshape(1)
-    if moved0 < count:
-        left = torch.searchsorted(row_k, k_cut)
-        right = torch.searchsorted(row_k, k_cut, right=True)
-        moved = torch.where(left > 0, left.clamp(max=moved0),
-                            right.clamp(max=count))
-    else:
-        moved = torch.full((1,), moved0, dtype=torch.int64, device=dev)
-
-    # ---- pivot partition of the moved prefix
-    cuts = torch.minimum(torch.searchsorted(row_k, piv), moved)
-    bounds = torch.cat([moved.new_zeros(1), cuts, moved])
-    starts, lens = bounds[:-1], bounds[1:] - bounds[:-1]
+    # ---- duplicate-safe cut and pivot partition of the moved prefix
+    moved, starts, lens = _flush_partition(row_k, piv, count, sigma=sigma,
+                                           run_cap=run_cap)
     pk, pv = _window(row_k, row_v, starts, lens, sigma_pad)    # (nc, sigma_pad)
 
     # ---- one batched merge across all children
@@ -538,7 +552,18 @@ class NBTreeIndex:
 
     # -------------------------------------------------------- paper operations
     def _handle_full(self, node: _HostNode) -> int:
-        """One HandleFullSNode step (Sec. 5.1).  Returns work units done."""
+        """One HandleFullSNode step (Sec. 5.1).  Returns work units done.
+
+        If flushing ``node`` would push a child's run past ``run_cap``, the
+        unit goes to that child instead (``node`` keeps its place at the
+        head of the queue): see :meth:`_overflowing_child`.
+        """
+        while not node.is_leaf:
+            child = self._overflowing_child(node)
+            if child is None:
+                break
+            self._enqueue(node, front=True)
+            node = child
         self.units_done += 1
         if node.is_leaf:
             if node is self.root:
@@ -556,6 +581,33 @@ class NBTreeIndex:
             # node absorbed multiple batches; it still owes another flush.
             self._enqueue(node)
         return 1
+
+    def _overflowing_child(self, node: _HostNode):
+        """The child a flush of ``node`` would overfill, or None.
+
+        A child whose run plus its share of the moved pairs exceeds
+        ``run_cap`` would lose its tail: the JAX package's index asserts
+        ("child run overflow") after the flush has written the truncated
+        row.  One large batch (a bulk load, a recovery's snapshot) reaches
+        that state, since the insert path's backpressure watches only the
+        root.  A flush moves at most ``sigma`` pairs (unless one key's
+        copies fill the head of the run: that group moves whole, and this
+        check does not see it), so only a child within ``sigma`` of
+        ``run_cap`` can overflow, and the shares are read from the device
+        only then, outside the dispatch funnel (the JAX index makes no such
+        read; dispatch counts stay comparable).  Wherever the JAX index
+        does not overflow, the port's tables stay bit-identical to it.
+        """
+        if all(c.count + self.sigma <= self.run_cap for c in node.children):
+            return None
+        lens = _device_call(
+            _flush_lens, self.run_keys, node.nid,
+            self._keys([int(k) for k in node.skeys]), node.count,
+            sigma=self.sigma, run_cap=self.run_cap).tolist()
+        for c, n in zip(node.children, lens):
+            if c.count + n > self.run_cap:
+                return c
+        return None
 
     def _alloc(self, parent) -> _HostNode:
         if self._next_id >= self.max_nodes:

@@ -100,6 +100,11 @@ class PagedKVCache:
         table = torch.where(present, pages, 0).reshape(len(seq_ids), max_pages)
         return table.to(torch.int32)
 
+    def seq_lens(self, seq_ids) -> torch.Tensor:
+        """(B,) int32 token counts of ``seq_ids``, on the cache's device."""
+        return torch.tensor([self.seq_len[int(s)] for s in np.asarray(seq_ids)],
+                            dtype=torch.int32, device=self.device)
+
     # ---------------------------------------------------------------- writes
     def lookup(self, seq_ids, positions):
         """Physical (page, slot) of each (seq_ids[i], positions[i]), one

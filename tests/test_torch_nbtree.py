@@ -193,6 +193,80 @@ def test_tables_match_jax_after_every_unit(stream, cfg):
         assert rv[b, : rc[b]].tolist() == [oracle[k] for k in want]
 
 
+def _reads_jit_queries(p: Pair, q, lo, hi):
+    """``Pair.reads`` with JAX's point descent jitted: its shape is fixed
+    here, so it compiles once, while op by op it costs ~0.5 s a call."""
+    pj, vj = p.j.query_batch(q)
+    with jax.disable_jit():
+        rj = p.j.range_query_batch(lo, hi, max_results=128)
+    pt, vt = p.t.query_batch(q)
+    rt = p.t.range_query_batch(lo, hi, max_results=128)
+    assert np.array_equal(np.asarray(pj), pt.numpy())
+    assert np.array_equal(np.asarray(vj), vt.numpy())
+    for a, b in zip(rj, rt):
+        assert np.array_equal(np.asarray(a).astype(np.int64),
+                              b.numpy().astype(np.int64))
+    _assert_same(p.j, p.t, "after reads")   # tallies included
+    return pt.numpy(), vt.numpy(), [x.numpy() for x in rt]
+
+
+def test_high_key_stream_matches_jax_after_every_unit():
+    """Keys from [2^32 - 4000, 2^32 - 1) plus 0, 1, 2^31 - 1 and 2^31 (and
+    the sentinel 2^32 - 1): every table after every one of 20 units, and
+    every point and range read after each, equal JAX's.  The inserted key
+    2^32 - 1 reads back absent in both packages: ``KEY_MAX32`` is the
+    shared padding sentinel, named as reserved by the port's protocol.
+    A query of that key routes through the KEY_MAX-padded pivots, which
+    JAX follows for ``max_levels + 1`` levels and the port for
+    ``height + 1``, so only its answer (not its Bloom tally) is compared,
+    once, after the stream."""
+    from repro_torch.core import engine_api
+    assert "KEY_MAX32" in engine_api.__doc__
+    sentinel = 2**32 - 1
+    rng = np.random.default_rng(12)
+    high = rng.permutation(np.arange(2**32 - 4000, sentinel, dtype=np.int64))
+    special = np.array([0, 1, 2**31 - 1, 2**31], np.int64)
+    pool = np.concatenate([special, [sentinel], high]).astype(np.uint32)
+    p = Pair(f=3, sigma=64, max_nodes=64, max_levels=6)
+    oracle: dict = {}
+    q = np.concatenate([special, high[:40], [2**32 - 4001]]).astype(np.uint32)
+    lo = np.array([0, 2**31, 2**32 - 4000, 2**32 - 60, 2**32 - 2, 5],
+                  np.uint32)
+    hi = np.array([2**31 - 1, 2**31 + 5, 2**32 - 3900, sentinel, sentinel, 4],
+                  np.uint32)
+    cursor = 0
+    while p.units < 20:
+        ks = pool[cursor: cursor + 128]
+        vs = (np.arange(len(ks)) + cursor).astype(np.int32)
+        p.insert(ks, vs)
+        oracle.update(zip(ks.tolist(), vs.tolist()))
+        if cursor == 256:
+            p.delete(pool[1:3])
+            oracle.update((k, None) for k in pool[1:3].tolist())
+        cursor += 128
+        for _ in range(2):
+            p.maintain(1)
+            pres, vals, (rk, rv, rc, rtr) = _reads_jit_queries(p, q, lo, hi)
+    for i, k in enumerate(q.tolist()):
+        want = oracle.get(k)
+        assert bool(pres[i]) == (want is not None), k
+        if want is not None:
+            assert vals[i] == want, k
+    live = sorted(k for k, v in oracle.items()
+                  if v is not None and k != sentinel)
+    for b in range(len(lo)):
+        want = [k for k in live if lo[b] <= k <= hi[b]]
+        assert not rtr[b] and rk[b, : rc[b]].tolist() == want
+    assert oracle[sentinel] is not None               # it was inserted ...
+    s = np.array([sentinel, 2**32 - 4000], np.uint32)
+    with jax.disable_jit():
+        pj, vj = p.j.query_batch(s)
+    pt, vt = p.t.query_batch(s)
+    assert np.array_equal(np.asarray(pj), pt.numpy())
+    assert np.array_equal(np.asarray(vj), vt.numpy())
+    assert not pt[0]                                  # ... and reads absent
+
+
 def test_state_roundtrip_continues_like_jax():
     """Load a JAX index's state mid-maintenance into the port, then run the
     same ops on both: tables stay bit-identical, and the export round-trips."""

@@ -226,6 +226,24 @@ def test_kv_cache_write_token_matches_jax(cache_runs, which):
     np.testing.assert_array_equal(t[:, table[0, 0], 1], sign * _kv(1, 1000)[0])
 
 
+def test_kv_cache_seq_lens_matches_jax():
+    caches = (jkv.PagedKVCache(L, KVH, D, n_pages=NP, page_size=PS,
+                               dtype=jnp.float32),
+              tkv.PagedKVCache(L, KVH, D, n_pages=NP, page_size=PS,
+                               dtype=torch.float32, device="cpu"))
+    with jax.disable_jit():
+        for c in caches:
+            c.add_sequence(3)
+            c.add_sequence(7, 5)
+            c.extend(3, 9)
+            c.add_sequence(1)
+        j = np.asarray(caches[0].seq_lens([7, 3, 1, 3]))
+    t = caches[1].seq_lens(np.array([7, 3, 1, 3]))
+    assert t.dtype == torch.int32 and t.device.type == "cpu"
+    assert j.dtype == np.int32 and np.array_equal(j, t.numpy())
+    assert t.tolist() == [5, 9, 0, 9]
+
+
 # ------------------------------------------------------------------ engine
 @pytest.fixture(scope="module")
 def jax_engine_tokens(models):
