@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port (the NB-tree device tier and the paged-KV
-serving bridge) on one NVIDIA card.
+"""Drive the PyTorch/CUDA port (the NB-tree device tier, durable and
+multi-tenant ingest over it, and the paged-KV serving bridge) on one NVIDIA
+card.
 
 Run from the repository root (needs one CUDA card, the CUDA toolkit and no
 network)::
@@ -50,11 +51,31 @@ network)::
    units, recoveries) and the device's idle share over the second trace;
    the frontend's per-op latencies on this engine are a virtual service
    model and are printed under that name.
+7. Sharded multi-tenant durable ingest, then a hot-shard split.
+   7a: ``make_engine("sharded:torch-nbtree", shards=4, partition="range")``
+   (f=4, sigma=4096, max_results 128, max_nodes 512 a shard) under
+   ``repro_torch.tenancy.MultiTenantFrontend`` in fair mode with a WAL and
+   snapshots every 1,024 commits; the four tenants of
+   ``workloads/tenants.py::mixed_oltp(n_ops=2^16, base_rate=8000)`` (writer,
+   reader, scanner, diurnal), each preloaded with 2^20 keys over a local
+   space of 2^22 (one batch, range-partitioned by its sample), killed
+   right after the 2048th fsync.  A snapshot of the scanner's namespace
+   pinned past commit 1,024 must equal its oracle at its watermark; each
+   tenant's ``recover_namespace``, into a fresh ensemble, must equal that
+   tenant's preload plus its acked rows (numpy, decoded).  Prints preload
+   inserts/s, commits/s, fsync p50/p99, per-tenant virtual e2e p99.9 and
+   shed counts, impl calls per commit, each recovery's time and the
+   device's idle share over commits 256..767.  7b: two range shards
+   (``skew_factor=1.5``), a YCSB load of 2^20 keys over 2^22, then
+   ``hotspot-shift`` in batches of 4096 with ``maintain(4)`` after each
+   until 16 batches past the first split: every answer and the final table
+   must equal a numpy oracle, and the split must read its shard
+   (>= 2^18 pairs) out without a capped range scan.
 
-Kernel launch counters are zeroed just before each path (2-3, 4, 6) and
-read just after; every kernel must have launched on its own path (and the
+Kernel launch counters are zeroed just before each path (2-3, 4, 6, 7)
+and read just after; every kernel must have launched on its own path (the
 four NB-tree kernels of the write side and the point reads on phase 6's
-too).  Prints a ``kernels`` JSON line, the card's name and power limit,
+too, and those and ``range_scan_rows`` on phase 7's).  Prints a ``kernels`` JSON line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits non-zero.
 """
@@ -87,6 +108,9 @@ KERNEL_PATH = {"paged_attention": "serve"}
 #: its point reads)
 INGEST_KERNELS = ("merge_sorted", "merge_sorted_batch", "sorted_search_rows",
                   "bloom_probe_rows")
+#: kernels phase 7's sharded multi-tenant path must launch (the write side,
+#: the reader's point reads and the scanner's ranges)
+TENANCY_KERNELS = INGEST_KERNELS + ("range_scan_rows",)
 
 
 def log(*a):
@@ -1321,17 +1345,25 @@ class _DispatchTally:
     def complete(self, *args, **kwargs):
         pass
 
+    def instant(self, *args, **kwargs):
+        pass
+
 
 def busy_share(prof, wall_s: float):
     """Device busy share of a profiled window and its top kernels, or None
-    when the profiler saw no device time."""
-    ev = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    busy_us = sum(e.self_device_time_total for e in ev)
-    if not busy_us:
+    when the profiler saw no device time.  Sums the device events' times
+    straight from the trace (what ``key_averages`` sums as self device
+    time) without parsing it into a tree of function events, which takes
+    tens of seconds over a window of many thousand launches."""
+    by_name = collections.Counter()
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            by_name[e.name()] += e.duration_ns()
+    busy_ns = sum(by_name.values())
+    if not busy_ns:
         return None, []
-    top = sorted(ev, key=lambda e: -e.self_device_time_total)[:6]
-    return busy_us / 1e6 / wall_s, [(e.key[:60], e.self_device_time_total / busy_us)
-                                     for e in top]
+    return busy_ns / 1e9 / wall_s, [(k[:60], v / busy_ns)
+                                    for k, v in by_name.most_common(6)]
 
 
 def run_mix(engine, workload, oracle, OpKind, label):
@@ -1823,11 +1855,14 @@ def phase_ingest(dev) -> dict:
             return real_maintain(budget)
 
         fe2.engine.maintain = windowed_maintain
+        d0 = fe2.engine.idx.dispatch_count
         t0 = time.perf_counter()
         rep2 = fe2.run(trace2)
         torch.cuda.synchronize()
         t_run = time.perf_counter() - t0
         del fe2.engine.maintain
+        per_commit = ((fe2.engine.idx.dispatch_count - d0)
+                      / rep2["server"]["n_commits"])
         assert calls[0] > 768, calls
         lsns = [a[0] for a in fe2.acked]
         assert lsns[0] == rr1.last_lsn + 1 and lsns == list(
@@ -1835,7 +1870,8 @@ def phase_ingest(dev) -> dict:
         served("trace 2 (after the restart)", fe2, t_run, len(trace2))
         e2e = rep2["per_kind_e2e"]["insert"]
         log(f"  trace 2: LSNs {lsns[0]}..{lsns[-1]} continue the chain "
-            f"(last before the restart {rr1.last_lsn}); shed "
+            f"(last before the restart {rr1.last_lsn}); impl calls per "
+            f"commit {per_commit:.3f} (apply + maintain(1)); shed "
             f"{rep2['n_shed']}; virtual service model (not "
             f"measured): insert e2e p50 {e2e['p50_s'] * 1e3:.3f} ms, p99.9 "
             f"{e2e['p999_s'] * 1e3:.3f} ms")
@@ -1862,6 +1898,314 @@ def phase_ingest(dev) -> dict:
         shutil.rmtree(root, ignore_errors=True)
         torch.cuda.empty_cache()
     return launches
+
+
+# ------------------------------------------------------------------ phase 7
+#: phase 7a: four tenants of ``mixed_oltp`` at 2^16 ops (the scanner 2^15),
+#: each preloaded with 2^20 keys over a local space of 2^22, killed after
+#: the 2048th fsync; a scanner snapshot is pinned past commit 1024
+TENANCY = dict(n_ops=1 << 16, base_rate=8000.0, preload=1 << 20,
+               key_space=1 << 22, crash_at=2048, pin_after=1024,
+               window=(256, 768))
+#: phase 7b: a hotspot-shift stream over two range shards, served until
+#: ``after`` batches past the first split (the window sweeps the key space
+#: over n_ops, so shard 0 runs hot for the first half)
+SPLIT = dict(preload=1 << 20, key_space=1 << 22, n_ops=3 << 18,
+             batch=4096, after=16, min_extract=1 << 18)
+
+
+def sharded_engine(dev, shards: int, **kw):
+    from repro_torch.core.engine_api import make_engine
+
+    return make_engine("sharded:torch-nbtree", shards=shards, f=4,
+                       sigma=4096, max_results=128, max_nodes=512,
+                       device=dev, **kw)
+
+
+def impl_calls(eng) -> int:
+    """Impl calls (``dispatch_count``) of every shard of ``eng``, the
+    shards retired by splits included."""
+    return sum(e.idx.dispatch_count for e in eng.shard_engines) \
+        + eng._retired[9]
+
+
+def tenant_oracle(ns, tid, preload, acked):
+    """Tenant ``tid``'s live table in its local keys: its preload, then its
+    rows of the acked commits in LSN order (numpy, ``ingest_oracle``)."""
+    lo, hi = ns.tenant_interval(tid)
+    mine = []
+    for lsn, kinds, keys, vals in acked:
+        m = (keys >= lo) & (keys <= hi)
+        if m.any():
+            mine.append((lsn, kinds[m], keys[m], vals[m]))
+    keys, vals = ingest_oracle(ns.encode_batch(tid, preload), mine)
+    return ns.decode(keys)[1], vals
+
+
+def phase_tenancy_ingest(dev) -> None:
+    """Phase 7a (see the module docstring)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.ingest import DurabilityConfig, FrontendConfig
+    from repro_torch.tenancy import (MultiTenantFrontend, NamespaceMap,
+                                     recover_namespace)
+    from repro_torch.wal import CrashPoint, FaultInjector, SimulatedCrash
+    from repro_torch.workloads.tenants import build_streams, mixed_oltp
+
+    cfg = TENANCY
+    ns = NamespaceMap()
+    streams = [dataclasses.replace(s, preload=cfg["preload"],
+                                   key_space=cfg["key_space"])
+               for s in mixed_oltp(n_ops=cfg["n_ops"],
+                                   base_rate=cfg["base_rate"])]
+    tenants, traces = build_streams(streams, seed=0)
+    names = {t.tenant_id: t.label for t in tenants}
+    scanner = next(t.tenant_id for t in tenants if t.label == "scanner")
+    n_pre = sum(len(tr.preload) for tr in traces.values())
+    t_mark = [time.perf_counter()]
+
+    def mark(label):            # wall seconds of each step of 7a
+        now = time.perf_counter()
+        log(f"  7a step: {label} {now - t_mark[0]:.3f} s")
+        t_mark[0] = now
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_tenancy_")
+    try:
+        eng = sharded_engine(dev, 4, partition="range")
+        inj = FaultInjector(CrashPoint.AFTER_WAL_FSYNC,
+                            at_occurrence=cfg["crash_at"])
+        fe = MultiTenantFrontend(
+            eng, tenants, FrontendConfig(),
+            durability=DurabilityConfig(root, checkpoint_every_commits=1024),
+            injector=inj, namespace=ns, fair=True)
+        # after the preload: impl calls of apply and of maintain, commits,
+        # and the profiled window of commits (one maintain a commit)
+        w0, w1 = cfg["window"]
+        calls = {"apply": 0, "maintain": 0, "commits": 0}
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        window = [0.0, 0.0]
+        real_apply, real_maintain = eng.apply, eng.maintain
+
+        def counted_apply(batch):
+            if fe.preload_wall_s and not calls["commits"]:
+                eng.attach_tracer(_DispatchTally())    # per-impl wall times
+            d0 = impl_calls(eng)
+            res = real_apply(batch)
+            if fe.preload_wall_s:
+                calls["apply"] += impl_calls(eng) - d0
+                calls["commits"] += 1
+            return res
+
+        def counted_maintain(budget=1):
+            if not fe.preload_wall_s:
+                return real_maintain(budget)
+            c = calls["commits"]
+            if c in (w0, w1) and not window[c == w1]:
+                torch.cuda.synchronize()
+                window[c == w1] = time.perf_counter()
+                (prof.start if c == w0 else prof.stop)()
+            d0 = impl_calls(eng)
+            debt = real_maintain(budget)
+            calls["maintain"] += impl_calls(eng) - d0
+            return debt
+
+        eng.apply, eng.maintain = counted_apply, counted_maintain
+        pinned, seen = [], [0]
+
+        def on_commit(front, _t):
+            seen[0] += 1
+            if seen[0] == cfg["pin_after"] + 1:
+                pinned.append(front.pin_snapshot(tenant_id=scanner))
+
+        t0 = time.perf_counter()
+        try:
+            fe.run(traces, on_commit=on_commit)
+        except SimulatedCrash:
+            pass
+        torch.cuda.synchronize()
+        t_run = time.perf_counter() - t0
+        mark("streams built, preload, serving until the kill")
+        del eng.apply, eng.maintain
+        assert inj.fired and len(fe.acked) == cfg["crash_at"], len(fe.acked)
+        assert eng.partitioner.n_shards == 4, eng.partitioner.n_shards
+        t_serve = t_run - fe.preload_wall_s - fe.checkpoint_wall_s[0]
+        log(f"  7a preload: {n_pre} keys of 4 tenants in "
+            f"{fe.preload_wall_s:.3f} s ({n_pre / fe.preload_wall_s:.1f} "
+            f"inserts/s, one batch over 4 range shards + drain; pivots "
+            f"{eng.partitioner.pivots.tolist()}); its snapshot "
+            f"{fe.checkpoint_wall_s[0]:.3f} s")
+        fs = fe.wal.fsync_s
+        log(f"  7a applied {calls['commits']} commits ({len(fe.acked)} "
+            f"fsynced) in {t_serve:.3f} s ({calls['commits'] / t_serve:.1f} "
+            f"commits/s wall), killed after fsync {cfg['crash_at']} (acked, "
+            f"not applied); fsync p50 / p99 "
+            f"{fs.quantile(0.5) * 1e3:.3f} / {fs.quantile(0.99) * 1e3:.3f} ms"
+            f", p100 {fs.max * 1e3:.3f} ms; snapshots "
+            + ", ".join(f"{x:.3f}" for x in fe.checkpoint_wall_s) + " s")
+        log("  7a node tables at the kill: " + ", ".join(
+            f"{e.idx.table_bytes()} B ({e.idx.max_nodes} rows, "
+            f"{e.idx._next_id} node ids)" for e in eng.shard_engines)
+            + f"; {sum(e.idx.table_bytes() for e in eng.shard_engines)} B "
+            "in all")
+        log(f"  7a impl calls per commit: "
+            f"{(calls['apply'] + calls['maintain']) / calls['commits']:.3f} "
+            f"(apply {calls['apply'] / calls['commits']:.3f}, maintain(1) "
+            f"{calls['maintain'] / calls['commits']:.3f}); "
+            f"{eng.n_splits} splits")
+        per_impl = collections.defaultdict(lambda: [0, 0.0])
+        for e in eng.shard_engines:
+            for k, v in e.idx.dispatch_stats.items():
+                per_impl[k][0] += v["count"]
+                per_impl[k][1] += v["wall_s"]
+        log("  7a host time of impl calls while serving: " + "; ".join(
+            f"{k} {n / calls['commits']:.3f} a commit, {w / n * 1e3:.3f} ms "
+            f"a call, {w / t_serve:.3f} of serving wall"
+            for k, (n, w) in sorted(per_impl.items(), key=lambda x: -x[1][1])))
+        for tid in sorted(fe.trackers):
+            rep = fe.trackers[tid].report(offered={}, t_end=1.0)
+            tails = ", ".join(f"{k} {v['p999_s'] * 1e3:.3f} ms"
+                              for k, v in rep["per_kind_e2e"].items())
+            log(f"  7a tenant {tid} ({names[tid]}): {rep['n_done']} ops "
+                f"served, shed {rep['n_shed']}; virtual service model (not "
+                f"measured): e2e p99.9 {tails}")
+        assert window[1] > window[0] > 0, "the profiled window never closed"
+        mark("reports")
+        share, top = busy_share(prof, window[1] - window[0])
+        mark("profile read")
+        log(f"  7a profiled commits {w0}..{w1 - 1}: "
+            + ("device busy share not measured (profiler saw no device "
+               "time)" if share is None else
+               f"device busy {share:.4f} of {window[1] - window[0]:.3f} s "
+               f"wall (idle {1 - share:.4f}); top kernels by device time: "
+               + "; ".join(f"{k} {f:.3f}" for k, f in top)))
+
+        # ---- the scanner's snapshot, pinned past commit pin_after --------
+        assert len(pinned) == 1, "no snapshot was pinned"
+        snap = pinned[0]
+        upto = [a for a in fe.acked if a[0] <= snap.watermark_lsn]
+        want_k, want_v = tenant_oracle(ns, scanner, traces[scanner].preload,
+                                       upto)
+        got_k = ns.decode(snap.keys)[1]
+        assert np.array_equal(got_k, want_k) and \
+            np.array_equal(snap.vals, want_v), "scanner snapshot != oracle"
+        log(f"  7a scanner snapshot at lsn {snap.watermark_lsn}: "
+            f"{len(snap)} pairs == its oracle at that lsn")
+        mark("snapshot check")
+        acked = fe.acked
+        del fe, eng, inj, pinned, snap
+        torch.cuda.empty_cache()
+
+        # ---- each tenant's namespace, recovered into a fresh ensemble ----
+        for tid in sorted(traces):
+            rr = recover_namespace(root, lambda: sharded_engine(dev, 4),
+                                   tid, namespace=ns)
+            torch.cuda.synchronize()
+            keys, vals = rr.engine.dump_live()
+            want_k, want_v = tenant_oracle(ns, tid, traces[tid].preload,
+                                           acked)
+            tids, local = ns.decode(keys)
+            assert (tids == tid).all() and np.array_equal(local, want_k) \
+                and np.array_equal(vals, want_v), \
+                f"tenant {tid}: recovered namespace != oracle"
+            assert rr.last_lsn == acked[-1][0], (rr.last_lsn, acked[-1][0])
+            log(f"  7a recover_namespace({tid}, {names[tid]}): "
+                f"{rr.recover_wall_s:.3f} s ({rr.snapshot_pairs} snapshot "
+                f"pairs @ lsn {rr.snapshot_lsn}, {rr.replayed_commits} "
+                f"commits / {rr.replayed_ops} ops replayed) == oracle "
+                f"({len(keys)} pairs)")
+            del rr
+            torch.cuda.empty_cache()
+            mark(f"recovery of tenant {tid} and its check")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+
+def phase_hot_split(dev) -> None:
+    """Phase 7b (see the module docstring)."""
+    from repro_torch.core.engine_api import OpKind
+    from repro_torch.kernels import ops
+    from repro_torch.workloads import make_workload
+
+    cfg = SPLIT
+    wl = make_workload("hotspot-shift", preload=cfg["preload"],
+                       key_space=cfg["key_space"], n_ops=cfg["n_ops"],
+                       batch_size=cfg["batch"], seed=5)
+    eng = sharded_engine(dev, 2, skew_factor=1.5, min_split_pairs=96)
+    splits = []
+    real_split = eng._split_shard
+
+    def logged_split(sid):
+        before = ops.launch_counts()["range_scan_rows"]
+        t0 = time.perf_counter()
+        ok = real_split(sid)
+        torch.cuda.synchronize()
+        if ok:      # the two halves' counts: the pairs the split read out
+            splits.append((sid, eng._approx_live[sid]
+                           + eng._approx_live[sid + 1],
+                           time.perf_counter() - t0,
+                           ops.launch_counts()["range_scan_rows"] - before))
+        return ok
+
+    eng._split_shard = logged_split
+    pre = wl.preload_batch()
+    oracle = Oracle(pre.keys, pre.vals)
+    t0 = time.perf_counter()
+    eng.apply(pre)
+    eng.drain()
+    t_load = time.perf_counter() - t0
+    n_ops = n_ranges = 0
+    left = None
+    t0 = time.perf_counter()
+    for batch in wl.batches():
+        res = eng.apply(batch)
+        eng.maintain(4)
+        n_ranges += oracle.check(batch, res, OpKind)
+        n_ops += len(batch)
+        if eng.n_splits and left is None:
+            left = cfg["after"]
+        if left is not None:
+            left -= 1
+            if left < 0:
+                break
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t0
+    eng.drain()
+    keys, vals = eng.dump_live()
+    assert np.array_equal(keys, oracle.keys) and \
+        np.array_equal(vals, oracle.vals), "7b: final live table != oracle"
+    assert eng.n_splits >= 1 and splits, "7b: no hot-shard split"
+    sid, pairs, dt, ranges = splits[0]
+    assert pairs >= cfg["min_extract"], f"7b: split read only {pairs} pairs"
+    assert all(s[3] == 0 for s in splits), "7b: a split ran a range scan"
+    log(f"  7b preload {len(pre)} keys over 2 range shards in {t_load:.3f} s; "
+        f"{n_ops} hotspot-shift ops of {cfg['n_ops']} ({n_ranges} ranges; "
+        f"stopped {cfg['after']} batches after the first split) in "
+        f"{t_serve:.3f} s "
+        f"({n_ops / t_serve:.1f} ops/s incl. maintain(4) a batch), every "
+        f"answer == oracle, final live table == oracle ({len(keys)} pairs)")
+    log(f"  7b {eng.n_splits} splits: "
+        + "; ".join(f"shard {s} read out {p} pairs uncapped in {d:.3f} s "
+                    f"({r} range launches)" for s, p, d, r in splits)
+        + f"; pivots {eng.partitioner.pivots.tolist()}; shard max_results "
+        f"{[e._max_results for e in eng.shard_engines]}; node tables "
+        f"{[e.idx.table_bytes() for e in eng.shard_engines]} B")
+    del eng
+    torch.cuda.empty_cache()
+
+
+def phase_tenancy(dev) -> dict:
+    """Phase 7: 7a then 7b; returns the launch counts of both."""
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    phase_tenancy_ingest(dev)
+    t1 = time.perf_counter()
+    phase_hot_split(dev)
+    torch.cuda.synchronize()
+    log(f"  7a took {t1 - t0:.1f} s, 7b {time.perf_counter() - t1:.1f} s")
+    return ops.launch_counts()
 
 
 def build_kernels(tmp: str) -> dict:
@@ -1911,6 +2255,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the served model's weights and prompts")
     args = ap.parse_args()
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -1947,6 +2292,14 @@ def main() -> int:
     paths["ingest"] = phase_ingest(dev)
     log(f"launches on the ingest path: {json.dumps(paths['ingest'])}; "
         f"phase 6 took {time.perf_counter() - t6:.1f} s")
+    torch.cuda.empty_cache()
+    log("phase 7: sharded multi-tenant durable ingest over "
+        "sharded:torch-nbtree, crash and per-tenant recovery; a hot-shard "
+        "split")
+    t7 = time.perf_counter()
+    paths["tenancy"] = phase_tenancy(dev)
+    log(f"launches on the tenancy path: {json.dumps(paths['tenancy'])}; "
+        f"phase 7 took {time.perf_counter() - t7:.1f} s")
     for name_k, row in rows.items():
         path = KERNEL_PATH.get(name_k, "nbtree")
         row["launches"] = paths[path][name_k]
@@ -1954,9 +2307,14 @@ def main() -> int:
                                    if c.get(name_k)}
         if not row["launches"]:
             raise AssertionError(f"{name_k} never launched on the {path} path")
-    for name_k in INGEST_KERNELS:
-        if not paths["ingest"][name_k]:
-            raise AssertionError(f"{name_k} never launched on the ingest path")
+    for path, names in (("ingest", INGEST_KERNELS),
+                        ("tenancy", TENANCY_KERNELS)):
+        for name_k in names:
+            if not paths[path][name_k]:
+                raise AssertionError(
+                    f"{name_k} never launched on the {path} path")
+    log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s, every phase "
+        "passed")
     print(json.dumps({"kernels": list(rows.values())}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

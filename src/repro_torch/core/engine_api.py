@@ -2,15 +2,23 @@
 
 The port's own copy of the protocol surface of ``repro/core/engine_api.py``
 (``OpKind``, ``OpBatch``, ``OpResult``, ``EngineStats``, the
-``StorageEngine`` base and an engine registry), plus two tiers:
+``StorageEngine`` base and an engine registry), plus the tiers:
 
 * :class:`TorchNBTreeEngine`, the port of ``DeviceNBTreeEngine``: the
   PyTorch/CUDA device tier under the protocol, registered as
   ``torch-nbtree``;
-* :class:`RefNBTreeEngine` over the host NB-tree (``refimpl``) on the
-  explicit I/O cost model, registered as ``nbtree``, ``nbtree-basic``
-  (no deamortization) and ``nbtree-nobloom``: a sim-clock tier, so an
-  open-loop run over it is a pure function of (trace, config).
+* the host tiers on the explicit I/O cost model (sim-clock, so an
+  open-loop run over them is a pure function of (trace, config)):
+  :class:`RefNBTreeEngine` over the host NB-tree (``refimpl``) as
+  ``nbtree``, ``nbtree-basic`` (no deamortization) and
+  ``nbtree-nobloom``; :class:`LSMEngine` as ``lsm`` and ``blsm`` (three
+  levels at most); :class:`BTreeEngine` as ``btree``;
+  :class:`BEpsilonEngine` as ``bepsilon``.
+
+:data:`FIVE_TIERS` names the paper's comparison set, with the port's
+device tier in the JAX package's ``jax-nbtree`` place.  The
+``sharded:<base>`` prefix of :func:`make_engine` builds a partitioned
+ensemble of any registered engine (``shard.ShardedEngine``).
 
 Semantics are sequential within a batch: op i+1 observes op i.  The device
 engine groups maximal same-kind op runs into one device call, which
@@ -35,7 +43,10 @@ import numpy as np
 import torch
 
 from ..obs.metrics import LogBucketHistogram
+from .bepsilon import BEpsilonTree
+from .btree import BPlusTree
 from .cost_model import HDD, CostModel, Device
+from .lsm import LSMTree
 from .refimpl import NBTree
 from .sorted_run import KEY_DTYPE, VAL_DTYPE
 from .torch_nbtree import TOMBSTONE32, NBTreeIndex
@@ -166,8 +177,8 @@ class EngineStats:
     ``device_dispatches`` counts impl calls of this engine's index.
     ``applied_lsn`` is the highest WAL commit applied (written through
     :meth:`StorageEngine.note_applied`; 0 outside a durable frontend).
-    ``shards``/``shard_debt`` keep the JAX package's report shape; the
-    port has no sharding yet, so they hold defaults.
+    ``shards``/``shard_debt`` are the shard count and per-shard debt of a
+    sharded ensemble (1 and empty for a single engine).
     """
 
     engine: str
@@ -411,6 +422,49 @@ class RefNBTreeEngine(CostModelEngine):
                 t.bloom_false_positives)
 
 
+class LSMEngine(CostModelEngine):
+    name = "lsm"
+
+    def __init__(self, mem_pairs: int = 4096, ratio: int = 10, *,
+                 device: Device = HDD, **kw):
+        super().__init__(LSMTree(mem_pairs=mem_pairs, ratio=ratio,
+                                 device=device, **kw))
+
+    def height(self) -> int:
+        return len(self.impl.levels)
+
+    def _bloom_stats(self) -> tuple:
+        t = self.impl
+        return (t.bloom_probes, t.bloom_negative_skips,
+                t.bloom_false_positives)
+
+
+class BTreeEngine(CostModelEngine):
+    """Incremental B+-tree (per-insert leaf read-modify-write)."""
+
+    name = "btree"
+
+    def __init__(self, *, device: Device = HDD, **kw):
+        super().__init__(BPlusTree(device=device, **kw))
+
+
+class BEpsilonEngine(CostModelEngine):
+    name = "bepsilon"
+
+    def __init__(self, *, fanout: int = 16, node_bytes: int = 4 << 20,
+                 cached_levels: int = 2, device: Device = HDD, **kw):
+        super().__init__(BEpsilonTree(fanout=fanout, node_bytes=node_bytes,
+                                      cached_levels=cached_levels,
+                                      device=device, **kw))
+
+    def height(self) -> int:
+        h, node = 0, self.impl.root
+        while not node.is_leaf:
+            node = node.children[0]
+            h += 1
+        return h
+
+
 # ================================================================ device tier
 def _pad_pow2(a: np.ndarray, max_copies: int | None = None) -> np.ndarray:
     """Pad a 1-d array to the next power-of-two length by repeating a[-1],
@@ -620,6 +674,9 @@ class TorchNBTreeEngine(StorageEngine):
 # =================================================================== registry
 _REGISTRY: dict = {}
 
+#: the paper's comparison set: one engine per tier, every benchmark's axis.
+FIVE_TIERS = ("nbtree", "lsm", "btree", "bepsilon", "torch-nbtree")
+
 
 def register_engine(name: str, factory) -> None:
     if name in _REGISTRY:
@@ -628,6 +685,18 @@ def register_engine(name: str, factory) -> None:
 
 
 def make_engine(name: str, **kw) -> StorageEngine:
+    if name.startswith("sharded:"):
+        # a partitioned ensemble of any registered engine:
+        # make_engine("sharded:nbtree", shards=4, **base_kw).  Imported
+        # here: the shard package programs against this module.
+        from ..shard import ShardedEngine
+        base = name.split(":", 1)[1]
+        if base not in _REGISTRY:
+            raise KeyError(f"unknown base engine {base!r} for {name!r}; "
+                           f"registered: {sorted(_REGISTRY)}")
+        eng = ShardedEngine(base, **kw)
+        eng.name = name
+        return eng
     try:
         factory = _REGISTRY[name]
     except KeyError:
@@ -647,4 +716,8 @@ register_engine("nbtree-basic",
                 lambda **kw: RefNBTreeEngine(deamortize=False, **kw))
 register_engine("nbtree-nobloom",
                 lambda **kw: RefNBTreeEngine(use_bloom=False, **kw))
+register_engine("lsm", LSMEngine)
+register_engine("blsm", lambda **kw: LSMEngine(**{"max_levels": 3, **kw}))
+register_engine("btree", BTreeEngine)
+register_engine("bepsilon", BEpsilonEngine)
 register_engine("torch-nbtree", TorchNBTreeEngine)

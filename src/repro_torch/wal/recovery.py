@@ -78,8 +78,11 @@ def recover(directory: str, engine_factory, *,
 
     ``key_range = (lo, hi)`` (inclusive) scopes recovery to one encoded-key
     interval: the snapshot's live table is filtered to it and WAL replay
-    skips every op outside it.  ``last_lsn`` still reports the *global*
-    durable watermark (the LSN chain is shared).
+    skips every op outside it.  A tenant namespace (``tenancy``) is
+    exactly such an interval, so this is single-namespace recovery — one
+    tenant's data rebuilt from the shared log without paying for its
+    co-tenants' history.  ``last_lsn`` still reports the *global* durable
+    watermark (the LSN chain is shared).
     """
     # imported here, not at module top: the checkpointer imports
     # wal.faults, and a module-level import would close the cycle.
