@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (the NB-tree device tier, durable and
-multi-tenant ingest over it, and the paged-KV serving bridge) on one NVIDIA
-card.
+multi-tenant ingest over it, the paged-KV serving bridge and the
+attention-backbone archs) on one NVIDIA card.
 
 Run from the repository root (needs one CUDA card, the CUDA toolkit and no
 network)::
@@ -38,6 +38,24 @@ network)::
 5. Exactness at full width, depth cut to 4 layers, fp32: the engine's
    greedy tokens for 2 requests of 64-token prompts (8 new tokens) must
    equal the contiguous-cache ``decode_step``'s.
+8. (Runs after phase 5.)  The attention-backbone archs, each model freed
+   before the next is drawn on the card from ``--seed``.  8a: gemma-2b
+   and 8b: starcoder2-3b at full width and depth (bf16) through the paged
+   engine with phase 4's traffic and checks; ``paged_attention`` meets two new shapes there (KVH 1, G 8,
+   D 256 and KVH 2, G 12, D 128).  8c: deepseek-moe-16b and 8d:
+   minicpm3-4b at full width and depth, 8e: mixtral-8x22b at full width
+   with its depth cut to 4 of 56, each through ``serve/steps.py``'s
+   prefill and decode steps over the contiguous cache (the reference
+   serves MoE and MLA stacks only there): 2 batches of 4 requests of
+   256-token prompts, 32 new tokens each, then 8 profiled decode steps;
+   prints prefill ms, step p50/p99, tokens/s, peak memory, the share of
+   (token, k) slots the MoE capacity drops at decode and the device's
+   idle share.  8f, fp32: gemma-2b (depth 4) engine tokens == contiguous
+   decode tokens; deepseek-moe-16b (1 dense + 1 moe layer) and
+   minicpm3-4b (4 layers) at full width, prefill-built cache tokens ==
+   stepwise cache tokens for 8 steps; the mixtral config reduced with
+   window 16, a 160-token prompt's ring decoded 40 steps past its
+   rollover == a full-length cache (the MoE cases at capacity factor 8.0).
 6. Durable open-loop ingest with a crash and a restart: ``torch-nbtree``
    at phase 2's shape under ``repro_torch.ingest.IngestFrontend`` with a
    WAL and LSN-keyed snapshots on local disk; a preload of 2^22 keys over
@@ -72,10 +90,12 @@ network)::
    must equal a numpy oracle, and the split must read its shard
    (>= 2^18 pairs) out without a capped range scan.
 
-Kernel launch counters are zeroed just before each path (2-3, 4, 6, 7)
-and read just after; every kernel must have launched on its own path (the
-four NB-tree kernels of the write side and the point reads on phase 6's
-too, and those and ``range_scan_rows`` on phase 7's).  Prints a ``kernels`` JSON line, the card's name and power limit,
+Kernel launch counters are zeroed just before each path (2-3, 4, the
+measured runs of 8a and 8b, 6, 7) and read just after; every kernel must
+have launched on its own path (the four NB-tree kernels of the write side
+and the point reads on phase 6's too, and those and ``range_scan_rows`` on
+phase 7's; the root merge, the search, the probe and ``paged_attention``
+on 8a-8b's, summed as the path ``archs``).  Prints a ``kernels`` JSON line, the card's name and power limit,
 and, last, ``{"ok": true, "device": {...}}``.  Any failure raises and
 exits non-zero.
 """
@@ -86,6 +106,7 @@ import collections
 import contextlib
 import ctypes
 import dataclasses
+import gc
 import json
 import shutil
 import subprocess
@@ -964,7 +985,9 @@ def pa_edge_sweep(g, dev) -> tuple:
              (4, 8, 4, 128, 8, 7, [0, 1, 56, 9]),          # MP off the split
              (4, 8, 1, 128, 8, 36, [0, 1, 288, 100]),      # G = 1
              (4, 8, 8, 128, 8, 36, [288, 1, 0, 200]),      # G = 8
-             (2, 4, 4, 128, 8, 13, [104, 3])]
+             (2, 4, 4, 128, 8, 13, [104, 3]),
+             (4, 1, 8, 256, 8, 36, None),                  # gemma-2b serving
+             (4, 2, 12, 128, 8, 36, None)]                 # starcoder2-3b
     for B, KVH, G, D, S, MP, lens in cases:
         for qdt, kvdt in ((f32, f32), (bf16, bf16), (bf16, f32)):
             tol = 3e-5 if qdt == kvdt == f32 else 3e-2
@@ -999,16 +1022,22 @@ def pa_edge_sweep(g, dev) -> tuple:
 
 
 SERVE_PA = dict(B=4, KVH=8, G=4, D=128, S=8, MP=36)
+#: the decode shapes of phase 8's paged serving (8a, 8b): 256-token
+#: prompts and 32 new tokens over pages of 8 slots, as SERVE_PA
+ARCH_PA = {"gemma-2b": dict(B=4, KVH=1, G=8, D=256, S=8, MP=36),
+           "starcoder2-3b": dict(B=4, KVH=2, G=12, D=128, S=8, MP=36)}
 
 
-def pa_serving_sets(g, dev, layers: int = 8) -> list:
-    """Inputs at the serving shapes (bf16 q over fp32 pages), one set per
-    layer of an (L, KVH, P, S, D) cache of P = 160 pages: 8 layers hold
-    84 MB of pages, more than L2, and each call reads a layer's slice as
-    the decoder does, with one block table for every layer (its range
-    check then runs once, outside the CUDA graph)."""
-    c = SERVE_PA
+def pa_serving_sets(g, dev, c=SERVE_PA) -> list:
+    """Inputs at a serving shape ``c`` (bf16 q over fp32 pages), one set per
+    layer of an (L, KVH, P, S, D) cache of P = B * MP + 16 pages, with as
+    many layers (at least 8) as hold more than ``COLD_BYTES`` of pages
+    (SERVE_PA: 8 layers, 84 MB), more than L2; each call reads a layer's
+    slice as the decoder does, with one block table for every layer (its
+    range check then runs once, outside the CUDA graph)."""
     P = c["B"] * c["MP"] + 16
+    layer_bytes = 2 * 4 * c["KVH"] * P * c["S"] * c["D"]
+    layers = max(8, -(-int(COLD_BYTES) // layer_bytes))
     shape = (layers, c["KVH"], P, c["S"], c["D"])
     kc = torch.randn(shape, generator=g, device=dev)
     vc = torch.randn(shape, generator=g, device=dev)
@@ -1035,6 +1064,30 @@ def pa_timings(sets, label: str) -> tuple:
     return warm, cold
 
 
+def pa_bound_ms(c) -> float:
+    """Bytes bound of one call at shape ``c``: every K and V element of the
+    named pages read once (fp32), q read and out written (bf16), the block
+    table and seq_lens read, over the card's memory rate."""
+    kv = c["B"] * c["KVH"] * c["MP"] * c["S"] * c["D"] * 2 * 4
+    qo = 2 * c["B"] * c["KVH"] * c["G"] * c["D"] * 2
+    return (kv + qo + c["B"] * c["MP"] * 4 + c["B"] * 4) / PEAK_BYTES_S * 1e3
+
+
+def pa_arch_timings(g, dev, label: str) -> None:
+    """``paged_attention`` at phase 8's two serving shapes, warm and cold,
+    beside its bound."""
+    for arch, c in ARCH_PA.items():
+        sets = pa_serving_sets(g, dev, c)
+        warm, cold = pa_timings(sets, f"{label} {arch} KVH={c['KVH']} "
+                                      f"G={c['G']} D={c['D']}")
+        log(f"  paged_attention {arch} shape: bound {pa_bound_ms(c):.6f} ms "
+            f"(bytes); warm {warm / pa_bound_ms(c):.2f}x, cold "
+            f"{cold / pa_bound_ms(c):.2f}x the bound ({len(sets)} layers of "
+            f"pages for the cold calls)")
+        del sets
+        torch.cuda.empty_cache()
+
+
 def path_shape_timings(dev) -> None:
     """``sorted_search_rows``, ``bloom_probe_rows``, ``range_scan_rows`` and
     ``paged_attention`` timed warm and cold at their path's shapes, through
@@ -1052,6 +1105,7 @@ def path_shape_timings(dev) -> None:
     torch.cuda.empty_cache()
     pa_timings(pa_serving_sets(g, dev), "(this package)")
     torch.cuda.empty_cache()
+    pa_arch_timings(g, dev, "(this package)")
 
 
 # ------------------------------------------------------------------ phase 1
@@ -1239,7 +1293,8 @@ def phase_kernels(dev, variants: dict) -> dict:
         "no edge case has MP off a whole number of splits"
     log(f"  paged_attention edge sweep ({n_cases} calls: the kernel tests' "
         f"shapes; MP = 1; splits capped at MP; MP off the split; seq_lens 0, "
-        f"1, MP*S; G = 1, 8; fp32, bf16 and bf16-over-fp32; (MP, splits) "
+        f"1, MP*S; G = 1, 8, 12; KVH 1 at D 256 and KVH 2 at G 12 (phase "
+        f"8's serving shapes); fp32, bf16 and bf16-over-fp32; (MP, splits) "
         f"{splits}; a misaligned slice and an out-of-range id raise): max abs "
         f"err fp32 {e32:.3g}, bf16 {e16:.3g}")
     B, KVH, G, D, S, P, MP = 4, 8, 4, 128, 8, 1024, 36
@@ -1272,6 +1327,8 @@ def phase_kernels(dev, variants: dict) -> dict:
            nops=4 * B * KVH * G * MP * S * D + 5 * B * KVH * G * MP * S)
     sets = pa_serving_sets(g, dev)
     pa_timings(sets, f"(this build, {pa_splits(B, KVH, MP)} splits)")
+    log(f"  paged_attention qwen3-8b shape: bound {pa_bound_ms(SERVE_PA):.6f} "
+        "ms (bytes)")
     for c, lib in variants["attention"].items():
         with kernel_library(lib):
             e32, e16, _, _ = pa_edge_sweep(g, dev)
@@ -1280,6 +1337,7 @@ def phase_kernels(dev, variants: dict) -> dict:
                              f"{e16:.3g})")
     del sets
     torch.cuda.empty_cache()
+    pa_arch_timings(g, dev, "(this build)")
     return rows
 
 
@@ -1366,6 +1424,16 @@ def busy_share(prof, wall_s: float):
                                     for k, v in by_name.most_common(6)]
 
 
+def busy_text(prof, wall_s: float) -> str:
+    """``busy_share`` of a profiled window, as the log prints it."""
+    share, top = busy_share(prof, wall_s)
+    if share is None:
+        return "device busy share not measured (profiler saw no device time)"
+    return (f"device busy {share:.4f} of {wall_s:.4f} s wall (idle "
+            f"{1 - share:.4f}); top kernels by device time: "
+            + "; ".join(f"{k} {f:.3f}" for k, f in top))
+
+
 def run_mix(engine, workload, oracle, OpKind, label):
     """Serve ``workload`` batch by batch (apply, then maintain(1)), checking
     every answer; up to 8 batches from the middle of the stream run under
@@ -1406,13 +1474,8 @@ def run_mix(engine, workload, oracle, OpKind, label):
         "service rates " + ", ".join(f"{k} {v:.1f} ops/s"
                                      for k, v in rates.items())
         + f"; every answer == oracle")
-    share, top = busy_share(prof, t_window)
     log(f"  {label} profiled batches {window.start}..{window.stop - 1}: "
-        + ("device busy share not measured (profiler saw no device time)"
-           if share is None else
-           f"device busy {share:.4f} of {t_window:.4f} s wall (idle "
-           f"{1 - share:.4f}); top kernels by device time: "
-           + "; ".join(f"{k} {f:.3f}" for k, f in top)))
+        + busy_text(prof, t_window))
     return rates, n_ops / t_serve
 
 
@@ -1519,35 +1582,79 @@ def pct(xs, q):
     return float(np.percentile(np.asarray(xs), q))
 
 
-def phase_serve(dev, args, cfg=None) -> dict:
-    """qwen3-8b at full width through the serving engine; returns the kernel
-    launches of this path.  ``cfg`` replaces the config only to rehearse
-    the phase on the CPU at a reduced size."""
-    from torch.profiler import ProfilerActivity, profile
+#: each full-size arch the script draws: its published shape (n_layers,
+#: d_model, n_heads, n_kv_heads, head_dim, d_ff, vocab, qk_norm, rope_base,
+#: dtype) and its weight bytes in that dtype (the MoE router in fp32), as
+#: the JAX package's init_params gives them under jax.eval_shape
+ARCHS = {
+    "qwen3-8b": ((36, 4096, 32, 8, 128, 12288, 151936, True, 1e6,
+                  "bfloat16"), 16_381_470_720),
+    "gemma-2b": ((18, 2048, 8, 1, 256, 16384, 256000, False, 1e4,
+                  "bfloat16"), 5_012_344_832),
+    "starcoder2-3b": ((30, 3072, 24, 2, 128, 12288, 49152, False, 1e5,
+                       "bfloat16"), 6_361_411_584),
+    "deepseek-moe-16b": ((28, 2048, 16, 16, 128, 10944, 102400, False, 1e4,
+                          "bfloat16"), 32_758_534_144),
+    "minicpm3-4b": ((62, 2560, 40, 40, 64, 6400, 73448, False, 1e4,
+                     "bfloat16"), 8_147_751_936),
+    "mixtral-8x22b": ((56, 6144, 48, 8, 128, 16384, 32768, False, 1e6,
+                       "bfloat16"), 281_265_647_616),
+}
 
-    from repro_torch.kernels import ops
-    from repro_torch.kernels import paged_attention as pa
+
+def arch_config(arch: str):
+    """The registry's config of ``arch``, asserted against ``ARCHS``."""
     from repro_torch.models import registry
-    from repro_torch.models.transformer import init_params
-    from repro_torch.serve.engine import INDEX_PARTS, Engine, Request
 
-    if cfg is None:
-        cfg = registry.get_config("qwen3-8b")
-        assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                cfg.resolved_head_dim, cfg.d_ff, cfg.vocab, cfg.qk_norm,
-                cfg.rope_base, cfg.dtype) == (36, 4096, 32, 8, 128, 12288,
-                                              151936, True, 1e6, "bfloat16")
-    n_req, prompt_len, n_new, max_batch = 8, 256, 32, 4
-    n_pages, page_size = 1024, 8
+    cfg = registry.get_config(arch)
+    got = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.resolved_head_dim, cfg.d_ff, cfg.vocab, cfg.qk_norm,
+           cfg.rope_base, cfg.dtype)
+    assert got == ARCHS[arch][0], (arch, got)
+    return cfg
+
+
+def draw_model(cfg, args, dev, arch=None):
+    """Random weights on the card from ``--seed``; at an arch's full depth
+    the weight bytes are asserted against ``ARCHS``.  Collects the earlier
+    phases' cyclic garbage first, so what they left on the card is freed
+    (and the rest is printed) before a model is drawn and measured."""
+    from repro_torch.models.transformer import init_params
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     model = init_params(cfg, seed=args.seed, device=dev)
     torch.cuda.synchronize()
     w_bytes = sum(p.nbytes for p in model.parameters())
-    log(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads} heads / {cfg.n_kv_heads} KV heads x "
+    if arch is not None and cfg.n_layers == ARCHS[arch][0][0]:
+        assert w_bytes == ARCHS[arch][1], (arch, w_bytes)
+    log(f"  {cfg.name}: {cfg.n_layers} layers {cfg.segments}, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} KV heads x "
         f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
         f"{cfg.dtype}; {w_bytes} weight bytes drawn on the card from seed "
-        f"{args.seed} in {time.perf_counter() - t0:.3f} s")
+        f"{args.seed} in {time.perf_counter() - t0:.3f} s ({held} bytes "
+        f"held on the card before the draw)")
+    return model
+
+
+def phase_serve(dev, args, arch="qwen3-8b", cfg=None) -> dict:
+    """``arch`` at full width and depth through the paged serving engine;
+    returns the kernel launches of its measured run.  ``cfg`` replaces the
+    config only to rehearse the phase on the CPU at a reduced size."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.serve.engine import INDEX_PARTS, Engine, Request
+
+    full = cfg is None
+    if full:
+        cfg = arch_config(arch)
+    n_req, prompt_len, n_new, max_batch = 8, 256, 32, 4
+    n_pages, page_size = 1024, 8
+    model = draw_model(cfg, args, dev, arch if full else None)
     eng = Engine(cfg, model, max_batch=max_batch, n_pages=n_pages,
                  page_size=page_size)
     page_bytes = eng.cache.k_pages.nbytes + eng.cache.v_pages.nbytes
@@ -1654,34 +1761,31 @@ def phase_serve(dev, args, cfg=None) -> dict:
     eng.run([Request(n_req + i, rng.integers(1, cfg.vocab, prompt_len).tolist(),
                      max_new_tokens=window.stop + 1) for i in range(max_batch)])
     assert len(eng.cache.free) == n_pages - 1
-    busy, top = busy_share(prof, wall_p[0])
     log(f"  profiled decode steps {window.start}..{window.stop - 1} of an "
-        f"extra batch: "
-        + ("device busy share not measured (profiler saw no device time)"
-           if busy is None else
-           f"device busy {busy:.4f} of {wall_p[0]:.4f} s wall (idle "
-           f"{1 - busy:.4f}); top kernels by device time: "
-           + "; ".join(f"{k} {f:.3f}" for k, f in top)))
+        f"extra batch: {busy_text(prof, wall_p[0])}")
+    del eng.decoder.decode           # the wrapper's cycle would keep the model
     del eng, model
     torch.cuda.empty_cache()
     return launches
 
 
 # ------------------------------------------------------------------ phase 5
-def phase_exact(dev, args) -> None:
-    """Full width, depth cut to 4 layers, fp32: the engine's greedy tokens
-    equal the contiguous-cache decode's."""
-    from repro_torch.models import registry
-    from repro_torch.models.transformer import init_params
+def phase_exact(dev, args, arch="qwen3-8b", cfg=None) -> None:
+    """``arch`` at full width, depth cut to 4 layers, fp32: the engine's
+    greedy tokens equal the contiguous-cache decode's.  ``cfg`` replaces
+    the cut config only to rehearse the phase on the CPU."""
     from repro_torch.serve.engine import Engine, Request
 
     depth, n_req, prompt_len, n_new = 4, 2, 64, 8
-    full = registry.get_config("qwen3-8b")
-    cfg = dataclasses.replace(full, n_layers=depth,
-                              segments=(("dense", depth),), dtype="float32")
-    log(f"  CUT: depth {depth} of {full.n_layers} layers (full width, fp32); "
-        f"{n_req} requests of {prompt_len}-token prompts, {n_new} new tokens")
-    model = init_params(cfg, seed=args.seed, device=dev)
+    if cfg is None:
+        full = arch_config(arch)
+        cfg = dataclasses.replace(full, n_layers=depth,
+                                  segments=(("dense", depth),),
+                                  dtype="float32")
+        log(f"  CUT: {arch} depth {depth} of {full.n_layers} layers (full "
+            f"width, fp32); {n_req} requests of {prompt_len}-token prompts, "
+            f"{n_new} new tokens")
+    model = draw_model(cfg, args, dev)
     prompts = np.random.default_rng(args.seed + 1).integers(
         1, cfg.vocab, (n_req, prompt_len))
     eng = Engine(cfg, model, max_batch=4, n_pages=1024, page_size=8)
@@ -1705,6 +1809,241 @@ def phase_exact(dev, args) -> None:
     assert [r.out for r in reqs] == ref, ([r.out for r in reqs], ref)
     del eng, model, cache
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------------------ phase 8
+#: kernels 8a-8b's paged serving must launch (the attention, and the page
+#: index's root merges, descents and probes)
+ARCH_KERNELS = ("merge_sorted", "sorted_search_rows", "bloom_probe_rows",
+                "paged_attention")
+
+
+@contextlib.contextmanager
+def counting_drops(tally):
+    """While ``tally["on"]``, count the (token, k) slots that MoE routing
+    sees and the ones its capacity drops (summed on the card)."""
+    from repro_torch.models import moe
+
+    real = moe.route
+
+    def route(xf, p, cfg):
+        out = real(xf, p, cfg)
+        if tally["on"]:
+            keep = out[3]
+            tally["slots"] += keep.numel()
+            tally["dropped"] = tally["dropped"] + (~keep).sum()
+        return out
+
+    moe.route = route
+    try:
+        yield tally
+    finally:
+        moe.route = real
+
+
+def phase_contiguous(dev, args, arch, depth=None, cfg=None) -> None:
+    """``arch`` at full width (depth cut to ``depth`` if given) through
+    ``serve/steps.py``'s prefill and decode steps over the contiguous
+    cache, the reference's entry points for MoE and MLA stacks: 2 batches
+    of 4 requests, 256-token prompts, 32 new tokens each; then a third
+    batch whose decode steps 2..9 run under torch.profiler.  ``cfg``
+    replaces the config only to rehearse the phase on the CPU."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.moe import capacity
+    from repro_torch.serve.steps import make_prefill_step, make_serve_step
+
+    full = cfg is None
+    if full:
+        cfg = arch_config(arch)
+        if depth is not None:
+            log(f"  CUT: depth {depth} of {cfg.n_layers} layers (full width)")
+            cfg = dataclasses.replace(cfg, n_layers=depth,
+                                      segments=((cfg.segments[0][0], depth),))
+    n_batches, B, prompt_len, n_new = 2, 4, 256, 32
+    model = draw_model(cfg, args, dev, arch if full else None)
+    prefill = make_prefill_step(cfg, prompt_len + n_new)
+    step = make_serve_step(cfg)
+    rng = np.random.default_rng(args.seed)
+    window = range(2, 10)
+    tally = {"on": False, "slots": 0, "dropped": 0}
+
+    def serve(profiled=None):
+        """One batch; returns (prefill s, decode step s, tokens)."""
+        toks = torch.as_tensor(rng.integers(1, cfg.vocab, (B, prompt_len)),
+                               device=dev)
+        t0 = time.perf_counter()
+        logits, cache = prefill(model, {"tokens": toks})
+        nxt = logits[:, -1].argmax(-1).to(torch.int32)
+        out = [nxt.tolist()]
+        t_pf = time.perf_counter() - t0
+        assert logits.shape == (B, 1, cfg.vocab)
+        assert bool(torch.isfinite(logits).all()), "prefill logits not finite"
+        steps = []
+        for s in range(n_new - 1):
+            if profiled is not None and s == window.start:
+                torch.cuda.synchronize()
+                profiled.start()
+            tally["on"] = profiled is not None and s not in window
+            t0 = time.perf_counter()
+            nxt, cache = step(model, cache, nxt, prompt_len + s)
+            out.append(nxt.tolist())
+            steps.append(time.perf_counter() - t0)
+            if profiled is not None and s == window.stop - 1:
+                torch.cuda.synchronize()
+                profiled.stop()
+        tally["on"] = False
+        tokens = torch.tensor(out).T
+        assert tokens.shape == (B, n_new)
+        assert bool(((tokens >= 0) & (tokens < cfg.vocab)).all())
+        return t_pf, steps, tokens
+
+    with counting_drops(tally):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        runs = [serve() for _ in range(n_batches)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        _, extra, _ = serve(profiled=prof)
+    pf = [r[0] for r in runs]
+    st = [s for r in runs for s in r[1]]
+    n_tok = n_batches * B * n_new
+    log(f"  served {n_batches} batches of {B} ({prompt_len}-token prompts, "
+        f"{n_new} new tokens each) through make_prefill_step / "
+        f"make_serve_step: {n_tok} tokens in {wall:.3f} s = "
+        f"{n_tok / wall:.1f} tokens/s; prefill {np.mean(pf) * 1e3:.3f} ms "
+        f"per batch ({', '.join(f'{x * 1e3:.3f}' for x in pf)}); decode "
+        f"step p50 {pct(st, 50) * 1e3:.3f} ms, p99 {pct(st, 99) * 1e3:.3f} "
+        f"ms, max {max(st) * 1e3:.3f} ms over {len(st)} steps "
+        f"({B / np.median(st):.1f} tokens/s in decode); peak device memory "
+        f"{peak} bytes")
+    if tally["slots"]:
+        dropped = int(tally["dropped"])
+        log(f"  MoE capacity at decode (B = {B}, cap = {capacity(B, cfg)}): "
+            f"{dropped} of {tally['slots']} (token, k) slots dropped, "
+            f"share {dropped / tally['slots']:.4f} (the third batch's "
+            f"unprofiled steps)")
+    wall_p = sum(extra[s] for s in window)
+    log(f"  profiled decode steps {window.start}..{window.stop - 1} of a "
+        f"third batch: {busy_text(prof, wall_p)}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def prefill_vs_stepwise(dev, args, cfg, B=2, S=32, n=8) -> None:
+    """A prefill-built cache continues with the same greedy tokens as a
+    cache built token by token, for ``n`` decode steps."""
+    model = draw_model(cfg, args, dev)
+    toks = torch.as_tensor(np.random.default_rng(args.seed + 2).integers(
+        1, cfg.vocab, (B, S)), device=dev)
+    logits, _, cache_pf = model(toks, build_cache_len=S + n)
+    cache_st = model.init_cache(B, S + n)
+    for i in range(S):
+        lg, cache_st = model.decode_step(toks[:, i], cache_st, i)
+    diff = float((logits[:, -1].float() - lg).abs().max())
+    a, b = [logits[:, -1].argmax(-1)], [lg.argmax(-1)]
+    for s in range(n):
+        la, cache_pf = model.decode_step(a[-1], cache_pf, S + s)
+        lb, cache_st = model.decode_step(b[-1], cache_st, S + s)
+        diff = max(diff, float((la - lb).abs().max()))
+        a.append(la.argmax(-1))
+        b.append(lb.argmax(-1))
+    a, b = torch.stack(a, 1).tolist(), torch.stack(b, 1).tolist()
+    log(f"  {cfg.name} {cfg.segments}: prefill-built cache tokens == "
+        f"stepwise cache tokens over {n} steps: {a == b}; max abs logit "
+        f"difference {diff:.3g}")
+    assert a == b, (a, b)
+    del model, cache_pf, cache_st
+    torch.cuda.empty_cache()
+
+
+def ring_vs_full(dev, args, cfg, B=2, S=160, n=40) -> None:
+    """An SWA prompt past window + 128: the prefill's ring decodes ``n``
+    steps past its rollover with the tokens and logits (fp32, within
+    1e-4) of a full-length cache built token by token."""
+    model = draw_model(cfg, args, dev)
+    toks = torch.as_tensor(np.random.default_rng(args.seed + 3).integers(
+        1, cfg.vocab, (B, S)), device=dev)
+    logits, _, ring = model(toks, build_cache_len=S + n)
+    slots = ring[0]["k"].shape[1]
+    assert slots == cfg.swa_window + 128 < S, slots
+    full = model.init_cache(B, S + n)
+    assert full[0]["k"].shape[1] == S + n
+    for i in range(S):
+        _, full = model.decode_step(toks[:, i], full, i)
+    nxt, diff, tokens = logits[:, -1].argmax(-1), 0.0, []
+    for s in range(n):
+        lr, ring = model.decode_step(nxt, ring, S + s)
+        lf, full = model.decode_step(nxt, full, S + s)
+        torch.testing.assert_close(lr, lf, atol=1e-4, rtol=1e-4)
+        diff = max(diff, float((lr - lf).abs().max()))
+        nxt = lr.argmax(-1)
+        assert torch.equal(nxt, lf.argmax(-1)), s
+        tokens.append(nxt)
+    log(f"  {cfg.name} reduced, window {cfg.swa_window}: a {S}-token "
+        f"prompt's ring of {slots} slots decoded {n} steps past its "
+        f"rollover (positions {S}..{S + n - 1}): tokens == full-length "
+        f"cache's, max abs logit difference {diff:.3g}")
+    del model, ring, full
+    torch.cuda.empty_cache()
+
+
+def phase_archs_exact(dev, args) -> None:
+    """8f, fp32: gemma-2b's engine against its contiguous decode (depth
+    4); deepseek-moe-16b (1 dense + 1 moe layer) and minicpm3-4b (4
+    layers) at full width, prefill-built cache against stepwise; the
+    mixtral config reduced with window 16, a ring past its rollover
+    against a full-length cache.  The MoE cases run at capacity factor
+    8.0, the reference test's, so that neither routing drops: the
+    prefill routes all B*S tokens under one capacity, a decode step B."""
+    phase_exact(dev, args, "gemma-2b")
+    ds = arch_config("deepseek-moe-16b")
+    ds = dataclasses.replace(ds, n_layers=2, segments=(("dense", 1),
+                                                        ("moe", 1)),
+                             dtype="float32", capacity_factor=8.0)
+    log("  CUT: deepseek-moe-16b depth 2 of 28 (layer 0 dense, one moe "
+        "layer), fp32, capacity factor 8.0 (default 1.25)")
+    prefill_vs_stepwise(dev, args, ds)
+    mc = arch_config("minicpm3-4b")
+    mc = dataclasses.replace(mc, n_layers=4, segments=(("mla", 4),),
+                             dtype="float32")
+    log("  CUT: minicpm3-4b depth 4 of 62, fp32")
+    prefill_vs_stepwise(dev, args, mc)
+    mx = dataclasses.replace(arch_config("mixtral-8x22b").reduced(),
+                             dtype="float32", remat="none", swa_window=16,
+                             capacity_factor=8.0)
+    log("  CUT: mixtral-8x22b reduced (d_model 128, 2 layers, 4 experts), "
+        "window 16, fp32, capacity factor 8.0 (the full-length cache is "
+        "built token by token, the ring by the prefill)")
+    ring_vs_full(dev, args, mx)
+
+
+def phase_archs(dev, args) -> dict:
+    """Phase 8 (see the module docstring); returns the kernel launches of
+    8a's and 8b's measured runs, summed."""
+    t0 = time.perf_counter()
+    times = {}
+    log("  8a: gemma-2b at full width and depth through the paged engine")
+    la = phase_serve(dev, args, "gemma-2b")
+    times["8a"] = time.perf_counter() - t0
+    log("  8b: starcoder2-3b at full width and depth through the paged engine")
+    lb = phase_serve(dev, args, "starcoder2-3b")
+    times["8b"] = time.perf_counter() - t0 - sum(times.values())
+    for part, arch, depth in (("8c", "deepseek-moe-16b", None),
+                              ("8d", "minicpm3-4b", None),
+                              ("8e", "mixtral-8x22b", 4)):
+        log(f"  {part}: {arch} at full width through serve/steps.py")
+        phase_contiguous(dev, args, arch, depth)
+        times[part] = time.perf_counter() - t0 - sum(times.values())
+    log("  8f: exactness, fp32")
+    phase_archs_exact(dev, args)
+    times["8f"] = time.perf_counter() - t0 - sum(times.values())
+    log("  phase 8 parts took " + ", ".join(f"{k} {v:.1f} s"
+                                            for k, v in times.items()))
+    return {k: la[k] + lb[k] for k in la}
 
 
 # ------------------------------------------------------------------ phase 6
@@ -1875,14 +2214,8 @@ def phase_ingest(dev) -> dict:
             f"{rep2['n_shed']}; virtual service model (not "
             f"measured): insert e2e p50 {e2e['p50_s'] * 1e3:.3f} ms, p99.9 "
             f"{e2e['p999_s'] * 1e3:.3f} ms")
-        t_window = window[1] - window[0]
-        share, top = busy_share(prof, t_window)
         log("  trace 2 profiled commits 256..767: "
-            + ("device busy share not measured (profiler saw no device time)"
-               if share is None else
-               f"device busy {share:.4f} of {t_window:.3f} s wall (idle "
-               f"{1 - share:.4f}); top kernels by device time: "
-               + "; ".join(f"{k} {f:.3f}" for k, f in top)))
+            + busy_text(prof, window[1] - window[0]))
         acked = acked1 + fe2.acked
         keys, vals = fe2.engine.dump_live()
         want_k, want_v = ingest_oracle(trace1.preload, acked)
@@ -2070,14 +2403,9 @@ def phase_tenancy_ingest(dev) -> None:
                 f"measured): e2e p99.9 {tails}")
         assert window[1] > window[0] > 0, "the profiled window never closed"
         mark("reports")
-        share, top = busy_share(prof, window[1] - window[0])
+        busy = busy_text(prof, window[1] - window[0])
         mark("profile read")
-        log(f"  7a profiled commits {w0}..{w1 - 1}: "
-            + ("device busy share not measured (profiler saw no device "
-               "time)" if share is None else
-               f"device busy {share:.4f} of {window[1] - window[0]:.3f} s "
-               f"wall (idle {1 - share:.4f}); top kernels by device time: "
-               + "; ".join(f"{k} {f:.3f}" for k, f in top)))
+        log(f"  7a profiled commits {w0}..{w1 - 1}: {busy}")
 
         # ---- the scanner's snapshot, pinned past commit pin_after --------
         assert len(pinned) == 1, "no snapshot was pinned"
@@ -2286,6 +2614,12 @@ def main() -> int:
     paths["serve"] = phase_serve(dev, args)
     log("phase 5: engine vs contiguous decode, exact tokens")
     phase_exact(dev, args)
+    log("phase 8: the attention-backbone archs (gemma-2b, starcoder2-3b, "
+        "deepseek-moe-16b, minicpm3-4b, mixtral-8x22b cut to 4 layers)")
+    t8 = time.perf_counter()
+    paths["archs"] = phase_archs(dev, args)
+    log(f"launches on the archs path (8a-8b): {json.dumps(paths['archs'])}; "
+        f"phase 8 took {time.perf_counter() - t8:.1f} s")
     log("phase 6: durable open-loop ingest over torch-nbtree, crash and "
         "restart")
     t6 = time.perf_counter()
@@ -2307,7 +2641,7 @@ def main() -> int:
                                    if c.get(name_k)}
         if not row["launches"]:
             raise AssertionError(f"{name_k} never launched on the {path} path")
-    for path, names in (("ingest", INGEST_KERNELS),
+    for path, names in (("archs", ARCH_KERNELS), ("ingest", INGEST_KERNELS),
                         ("tenancy", TENANCY_KERNELS)):
         for name_k in names:
             if not paths[path][name_k]:

@@ -4,7 +4,9 @@
       --reduced --device cpu --requests 8 --prompt-len 16 --max-new 12
 
 Without ``--reduced`` it serves the arch at full width in its config's
-dtype (qwen3-8b: bf16, ~16.4 GB of weights), which needs the card.
+dtype (qwen3-8b: bf16, ~16.4 GB of weights), which needs the card.  The
+paged engine serves dense and swa stacks (qwen3-8b, gemma-2b,
+starcoder2-3b); for any other arch the CLI exits, as the JAX one does.
 ``--device`` defaults to ``cuda``.  Weights are random, drawn from seed 0.
 """
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 from ..device import resolve_device
 from ..models import registry
 from ..models.transformer import init_params
-from ..serve.engine import Engine, Request
+from ..serve.engine import PAGED_KINDS, Engine, Request
 
 
 def main(argv=None):
@@ -38,6 +40,9 @@ def main(argv=None):
     cfg = registry.get_config(args.arch)
     if args.reduced:
         cfg = dataclasses.replace(cfg.reduced(), dtype="float32", remat="none")
+    if any(k not in PAGED_KINDS for k, _ in cfg.segments):
+        raise SystemExit("paged-KV engine serves attention backbones; "
+                         "pick a dense/swa arch (qwen3-8b, gemma-2b, ...)")
     model = init_params(cfg, seed=0, device=dev)
     eng = Engine(cfg, model, max_batch=args.max_batch, n_pages=1024,
                  page_size=8)

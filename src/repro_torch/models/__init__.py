@@ -1,1 +1,1 @@
-"""Transformer layers and stack in PyTorch (dense attention backbones)."""
+"""Transformer layers and stack in PyTorch (the attention-backbone block kinds)."""

@@ -4,8 +4,10 @@
 numpy arrays (``jax.tree.map(np.asarray, init_params(key, cfg))``) and
 returns a :class:`Transformer` holding the same values: each ``seg{i}``
 leaf's leading (layer) axis is unstacked into that segment's per-layer
-modules.  The port's forward then computes what the JAX forward computes,
-which is how the tests compare the two.
+modules.  The MoE tree (3-D expert leaves, ``shared``, the fp32 router)
+and the MLA names carry across under the same names.  The port's forward
+then computes what the JAX forward computes, which is how the tests
+compare the two.
 """
 from __future__ import annotations
 

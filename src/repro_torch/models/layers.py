@@ -1,7 +1,8 @@
 """Transformer layers in PyTorch: norms, RoPE, GQA attention, MLPs.
 
-The port of ``repro/models/layers.py`` for the dense attention backbone.
-Conventions kept from the JAX package:
+The port of ``repro/models/layers.py`` for the attention backbones (full
+and sliding-window causal attention).  Conventions kept from the JAX
+package:
 
   * weights keep the JAX layout, ``(in, out)``, so ``x @ w`` reads as
     there and ``models/convert.py`` copies a JAX param tree across as it is;
@@ -153,16 +154,20 @@ def project_qkv(x, p, cfg, cos, sin):
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def attention(x, p, cfg, *, positions, cache=None, cache_index=None,
-              true_index=None):
-    """Full-sequence causal or single-step (cache) attention.
+def attention(x, p, cfg, *, positions, window=None, cache=None,
+              cache_index=None, true_index=None):
+    """Full-sequence causal or single-step (cache) attention; ``window``
+    enables SWA (a key attends if it is at most ``window - 1`` positions
+    behind the query).
 
     Without ``cache``: x (B, S, d); returns (out, {"k", "v"}), the raw
     per-position KV for a prefill cache.  With ``cache`` = dict(k, v, pos)
-    of (B, kv_len, ...): the new KV of x (B, 1, d) is written in place at
-    slot ``cache_index`` (int) and masking uses the stored true positions.
-    Returns (out, cache).  The reference's ``kind`` (bidirectional) and
-    ``window`` (SWA) belong to block kinds the port does not run.
+    of (B, kv_len, ...), a *ring* when kv_len < context: the new KV of x
+    (B, 1, d) is written in place at slot ``cache_index`` (= true_index %
+    kv_len) and masking uses the stored true positions, so rolled-over
+    slots are handled exactly.  Returns (out, cache).  The reference's
+    ``kind="bidir"`` belongs to the encoder block, which is not ported
+    (ROADMAP.md, queue 1, item 9g).
     """
     if cfg.mrope_sections is not None:
         raise NotImplementedError("M-RoPE is not ported (ROADMAP.md, queue 1, "
@@ -177,7 +182,8 @@ def attention(x, p, cfg, *, positions, cache=None, cache_index=None,
                 f"B*S*S*H = {B * S * S * cfg.n_heads} > {BLOCKWISE_THRESHOLD}: "
                 "the reference attends blockwise here, which is not ported "
                 "(ROADMAP.md, queue 1, item 10)")
-        out = _sdpa(q, k, v, causal_mask(S, device=x.device).expand(B, S, S))
+        mask = causal_mask(S, window=window, device=x.device)
+        out = _sdpa(q, k, v, mask.expand(B, S, S))
         new_cache = {"k": k, "v": v}
     else:
         if cache["k"].dtype == torch.int8:
@@ -195,6 +201,8 @@ def attention(x, p, cfg, *, positions, cache=None, cache_index=None,
                 "reference decodes blockwise here, which is not ported "
                 "(ROADMAP.md, queue 1, item 10)")
         m = (cpos <= tidx) & (cpos >= 0)
+        if window is not None:
+            m = m & (cpos > tidx - window)
         out = _sdpa(q, ck, cv, m[:, None, :]).to(x.dtype)
         new_cache = cache
     out = out.reshape(B, S, cfg.n_heads * cfg.resolved_head_dim) @ p.wo

@@ -1,0 +1,116 @@
+"""Multi-head Latent Attention (MiniCPM3-4B / DeepSeek-V2 family), in PyTorch.
+
+The port of ``repro/models/mla.py``.  Queries go through a low-rank
+bottleneck (q_lora_rank); keys/values are compressed into a small latent
+c_kv (kv_lora_rank) plus a shared rotary key slice, so the decode cache
+stores only (c_kv, k_rope): kv_lora_rank + qk_rope_head_dim values per
+token instead of 2 * H * head_dim.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from .layers import (BLOCKWISE_THRESHOLD, _weight, apply_rope, rms_norm,
+                     rope_angles, should_use_blockwise)
+
+
+class MLA(nn.Module):
+    """The MLA projections, with the reference's names: ``wq_down``,
+    ``q_norm`` (q_lora_rank,), ``wq_up``, ``wkv_down``, ``kv_norm``
+    (kv_lora_rank,), ``wk_up``, ``wv_up``, ``wo``."""
+
+    def __init__(self, cfg, dtype, device):
+        super().__init__()
+        m = cfg.mla
+        d, H = cfg.d_model, cfg.n_heads
+        qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+        self.wq_down = _weight((d, m.q_lora_rank), dtype, device)
+        self.q_norm = nn.Parameter(torch.ones(m.q_lora_rank, dtype=dtype,
+                                              device=device),
+                                   requires_grad=False)
+        self.wq_up = _weight((m.q_lora_rank, H * qk_dim), dtype, device)
+        self.wkv_down = _weight((d, m.kv_lora_rank + m.qk_rope_head_dim),
+                                dtype, device)
+        self.kv_norm = nn.Parameter(torch.ones(m.kv_lora_rank, dtype=dtype,
+                                               device=device),
+                                    requires_grad=False)
+        self.wk_up = _weight((m.kv_lora_rank, H * m.qk_nope_head_dim), dtype,
+                             device)
+        self.wv_up = _weight((m.kv_lora_rank, H * m.v_head_dim), dtype, device)
+        self.wo = _weight((H * m.v_head_dim, d), dtype, device)
+
+
+def mla_attention(x, p, cfg, *, positions, cache=None, cache_index=None):
+    """Returns (out, cache).
+
+    Without ``cache``: x (B, S, d), causal attention over K/V built from
+    the latent; the cache returned is the raw per-position
+    dict(c_kv (B, S, R), k_rope (B, S, Dr)).  With ``cache`` (the same
+    keys, (B, T, ...)): x (B, 1, d) is written in place at slot
+    ``cache_index`` (int) and attends in the *absorbed* form, which reads
+    only the latent cache; slots up to ``cache_index`` attend (no stored
+    positions).
+    """
+    m = cfg.mla
+    B, S, _ = x.shape
+    H, R = cfg.n_heads, m.kv_lora_rank
+    nope, rope = m.qk_nope_head_dim, m.qk_rope_head_dim
+    qk_dim = nope + rope
+
+    q = rms_norm(x @ p.wq_down, p.q_norm, cfg.norm_eps) @ p.wq_up
+    q = q.reshape(B, S, H, qk_dim)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+
+    kv = x @ p.wkv_down                                   # (B, S, R + Dr)
+    c_kv = rms_norm(kv[..., :R], p.kv_norm, cfg.norm_eps)
+    k_rope_new = kv[..., R:][:, :, None, :]               # (B, S, 1, Dr)
+
+    cos, sin = rope_angles(positions, rope, cfg.rope_base)
+    q_rope = apply_rope(q_rope, cos, sin)
+    k_rope_new = apply_rope(k_rope_new, cos, sin)[:, :, 0]  # (B, S, Dr)
+
+    if cache is None:
+        if should_use_blockwise(B, S, S, H):
+            raise NotImplementedError(
+                f"B*S*S*H = {B * S * S * H} > {BLOCKWISE_THRESHOLD}: the "
+                "reference attends blockwise here, which is not ported "
+                "(ROADMAP.md, queue 1, item 10)")
+        k_nope = (c_kv @ p.wk_up).reshape(B, S, H, nope)
+        v = (c_kv @ p.wv_up).reshape(B, S, H, m.v_head_dim)
+        k_cat = torch.cat([k_nope, k_rope_new[:, :, None, :].expand(
+            B, S, H, rope)], -1)
+        q_cat = torch.cat([q_nope, q_rope], -1)           # (B, S, H, qk_dim)
+        sc = torch.einsum("bshd,bthd->bhst", q_cat.float(),
+                          k_cat.float()) / math.sqrt(qk_dim)
+        idx = torch.arange(S, device=x.device)
+        mask = idx[None, :] <= idx[:, None]
+        sc = torch.where(mask[None, None], sc, -1e30)
+        w = torch.softmax(sc, dim=-1)
+        out = torch.einsum("bhst,bthd->bshd", w, v.float())
+        out = out.reshape(B, S, H * m.v_head_dim).to(x.dtype) @ p.wo
+        return out, {"c_kv": c_kv, "k_rope": k_rope_new}
+
+    # ---- decode: absorbed attention ---------------------------------------
+    # score = q_nope . (c_kv W_uk)^T == (q_nope W_uk^T) . c_kv, so the step
+    # reads only the latent cache and never builds (B, T, H, D) keys.
+    ck, kr = cache["c_kv"], cache["k_rope"]
+    ck[:, cache_index:cache_index + S] = c_kv
+    kr[:, cache_index:cache_index + S] = k_rope_new
+    T = ck.shape[1]
+    ckf = ck.float()
+    wk = p.wk_up.reshape(R, H, nope).float()
+    q_abs = torch.einsum("bshd,rhd->bshr", q_nope.float(), wk)    # (B,1,H,R)
+    sc = (torch.einsum("bshr,btr->bhst", q_abs, ckf)
+          + torch.einsum("bshd,btd->bhst", q_rope.float(), kr.float())
+          ) / math.sqrt(qk_dim)
+    mask = torch.arange(T, device=x.device) <= cache_index
+    sc = torch.where(mask[None, None, None, :], sc, -1e30)
+    w = torch.softmax(sc, dim=-1)
+    ctx = torch.einsum("bhst,btr->bshr", w, ckf)                 # (B,1,H,R)
+    wv = p.wv_up.reshape(R, H, m.v_head_dim).float()
+    out = torch.einsum("bshr,rhd->bshd", ctx, wv)
+    out = out.reshape(B, S, H * m.v_head_dim).to(x.dtype) @ p.wo
+    return out, cache

@@ -1,0 +1,121 @@
+"""Mixture-of-Experts MLP with capacity-based sort dispatch, in PyTorch.
+
+The port of ``repro/models/moe.py``.  Mixtral-style (few large experts)
+and DeepSeek-MoE-style (fine-grained routed experts + always-on shared
+experts) are both expressed here.
+
+Dispatch is the static-shape *capacity* formulation: token->expert
+assignments are grouped by a stable sort on expert id, truncated to
+``cap = max(1, round(tokens * top_k / E * capacity_factor))`` per expert
+(overflow slots drop), and the grouped activations hit the expert weights
+as one batched product ``(E, cap, d) @ (E, d, d_ff)``: every expert's
+``cap`` rows run, used or not, as in the reference.
+
+The reference batches the dispatch over G data-parallel groups read from
+its JAX mesh (``_dp_groups``).  The port has no mesh, so G = 1: every
+token of the call is one group, which is what the reference computes
+without a mesh too.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .layers import MLP, _weight
+
+
+class MoE(nn.Module):
+    """``router`` (d, E), fp32 whatever the model dtype; the expert weights
+    ``wi``/``wg`` (E, d, d_ff) and ``wo`` (E, d_ff, d); ``shared`` (a
+    swiglu MLP of width d_ff * n_shared_experts) when the config has
+    shared experts."""
+
+    def __init__(self, cfg, dtype, device):
+        super().__init__()
+        d, E = cfg.d_model, cfg.n_experts
+        dff = cfg.d_expert or cfg.d_ff
+        self.router = _weight((d, E), torch.float32, device)
+        self.wi = _weight((E, d, dff), dtype, device)
+        self.wg = _weight((E, d, dff), dtype, device)
+        self.wo = _weight((E, dff, d), dtype, device)
+        if cfg.n_shared_experts:
+            self.shared = MLP(d, dff * cfg.n_shared_experts, "swiglu", dtype,
+                              device)
+
+
+def capacity(n_tokens: int, cfg) -> int:
+    """Slots per expert for ``n_tokens`` tokens (Python's ``round``, which
+    rounds halves to even, as the reference)."""
+    return int(max(1, round(n_tokens * cfg.top_k / cfg.n_experts
+                            * cfg.capacity_factor)))
+
+
+def route(xf, p, cfg):
+    """Top-k routing of xf (N, d) and its capacity dispatch plan.
+
+    Returns (gate, eidx, order, keep, dest, cap): the softmax over the top
+    k fp32 router logits and the chosen experts, both (N, K); the stable
+    order of the N*K (token, k) slots by expert id; for each slot in that
+    order whether it fits its expert's capacity, and its row ``dest`` in
+    the (E * cap) expert grid.
+    """
+    N = xf.shape[0]
+    E, K = cfg.n_experts, cfg.top_k
+    logits = xf.float() @ p.router                            # (N, E)
+    gate, eidx = torch.topk(logits, K, dim=-1)                # (N, K)
+    gate = torch.softmax(gate, dim=-1)                        # renorm over top-k
+    flat_e = eidx.reshape(N * K)
+    order = torch.argsort(flat_e, stable=True)                # token order kept
+    sorted_e = flat_e[order]
+    cap = capacity(N, cfg)
+    first = torch.searchsorted(sorted_e, sorted_e, side="left")
+    within = torch.arange(N * K, device=xf.device) - first    # rank in group
+    keep = within < cap
+    dest = sorted_e * cap + within.clamp(0, cap - 1)
+    return gate, eidx, order, keep, dest, cap
+
+
+def moe_mlp(x, p, cfg):
+    """x (B, S, d) -> (B, S, d): top-k routing with capacity dispatch."""
+    B, S, d = x.shape
+    N, E, K = B * S, cfg.n_experts, cfg.top_k
+    xf = x.reshape(N, d)
+    gate, _, order, keep, dest, cap = route(xf, p, cfg)
+    slot_token = order // K                                   # (N*K,)
+
+    # Row N of xpad is the padding row; a dropped slot's write goes to the
+    # extra grid row E*cap, which is cut off (the reference's mode="drop").
+    grid_token = torch.full((E * cap + 1,), N, dtype=torch.long,
+                            device=x.device)
+    grid_token.scatter_(0, torch.where(keep, dest, E * cap), slot_token)
+    xpad = torch.cat([xf, xf.new_zeros((1, d))])
+    xg = xpad[grid_token[:E * cap]].reshape(E, cap, d)
+
+    # ---- expert FFN: every expert's cap rows in one batched product -----
+    h = torch.bmm(xg, p.wi)
+    g = torch.bmm(xg, p.wg)
+    yg = torch.bmm(F.silu(g) * h, p.wo).to(x.dtype).reshape(E * cap, d)
+
+    # ---- combine back with the gate weights, in fp32 ---------------------
+    slot_gate = gate.reshape(N * K)[order]
+    contrib = torch.where(keep, slot_gate, 0.0)
+    vals = yg[torch.where(keep, dest, 0)].float()
+    y = torch.zeros((N + 1, d), dtype=torch.float32, device=x.device)
+    y.index_add_(0, torch.where(keep, slot_token, N), vals * contrib[:, None])
+    out = y[:N].to(x.dtype)
+
+    if cfg.n_shared_experts:
+        sp = p.shared
+        out = out + (F.silu(xf @ sp.wg) * (xf @ sp.wi)) @ sp.wo
+    return out.reshape(B, S, d)
+
+
+def aux_load_balance_loss(x, p, cfg):
+    """Switch-style load-balancing auxiliary loss (fp32 scalar)."""
+    N = x.shape[0] * x.shape[1]
+    logits = x.reshape(N, -1).float() @ p.router
+    probs = torch.softmax(logits, dim=-1)
+    _, eidx = torch.topk(logits, cfg.top_k, dim=-1)
+    frac = F.one_hot(eidx, cfg.n_experts).float().mean(dim=(0, 1))
+    return cfg.n_experts * torch.sum(frac * probs.mean(0))

@@ -1,31 +1,33 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig, for the archs the
 port serves.
 
-The port serves the dense attention backbone (``qwen3-8b``).  The other
-archs of the JAX package need block kinds, attention variants or configs
-that are not ported yet; asking for one raises and names the ROADMAP.md
-item that ports it.
+The port serves every arch whose decode state is a KV cache: the dense
+backbones (qwen3-8b, gemma-2b, starcoder2-3b), MoE (deepseek-moe-16b,
+mixtral-8x22b, whose layers are sliding-window) and MLA (minicpm3-4b).
+The other archs of the JAX package need block kinds or attention
+variants that are not ported yet; asking for one raises and names the
+ROADMAP.md item that ports it.
 """
 from __future__ import annotations
 
 import importlib
 
 _ARCHS = {
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "mixtral-8x22b": "mixtral_8x22b",
+    "starcoder2-3b": "starcoder2_3b",
+    "minicpm3-4b": "minicpm3_4b",
     "qwen3-8b": "qwen3_8b",
+    "gemma-2b": "gemma_2b",
 }
 
-#: archs of the JAX package that the port does not serve yet, with what
-#: they still need (ROADMAP.md, queue 1, items 9 and 10).
+#: archs of the JAX package that the port does not serve yet: what they
+#: still need and the ROADMAP.md item (queue 1) that ports it.
 _NOT_PORTED = {
-    "deepseek-moe-16b": "the moe block kind",
-    "mixtral-8x22b": "the moe_swa block kind",
-    "xlstm-1.3b": "the mlstm/slstm block kinds",
-    "starcoder2-3b": "its config (a dense stack)",
-    "minicpm3-4b": "the mla block kind",
-    "gemma-2b": "its config (a dense stack)",
-    "hubert-xlarge": "the encoder block kind and embeds input",
-    "hymba-1.5b": "the hybrid block kinds",
-    "qwen2-vl-2b": "M-RoPE",
+    "xlstm-1.3b": ("the mlstm/slstm block kinds", "9e"),
+    "hymba-1.5b": ("the hybrid block kinds", "9f"),
+    "hubert-xlarge": ("the encoder block kind and embeds input", "9g"),
+    "qwen2-vl-2b": ("M-RoPE", "10"),
 }
 
 
@@ -35,10 +37,11 @@ def list_archs() -> list[str]:
 
 def get_config(arch: str):
     if arch in _NOT_PORTED:
+        needs, item = _NOT_PORTED[arch]
         raise NotImplementedError(
-            f"{arch!r} is not ported to repro_torch yet: it needs "
-            f"{_NOT_PORTED[arch]} (ROADMAP.md, queue 1, items 9-10); the "
-            f"port serves {list_archs()}")
+            f"{arch!r} is not ported to repro_torch yet: it needs {needs} "
+            f"(ROADMAP.md, queue 1, item {item}); the port serves "
+            f"{list_archs()}")
     if arch not in _ARCHS:
         raise KeyError(f"unknown arch {arch!r}; available: {list_archs()}")
     mod = importlib.import_module(f"repro_torch.configs.{_ARCHS[arch]}")

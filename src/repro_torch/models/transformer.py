@@ -1,21 +1,23 @@
-"""The segmented transformer in PyTorch, dense attention blocks only.
+"""The segmented transformer in PyTorch: the attention-backbone block kinds.
 
 The port of ``repro/models/transformer.py``: ``Transformer`` holds one
 ``Block`` per layer (the JAX package scans stacked parameters; the port
 runs a Python loop over modules).  Entry points:
 
   init_params(cfg, seed, device)                -> Transformer, random weights
-  Transformer.forward(tokens, ...)              -> logits (B, S, V) [, cache]
+  Transformer.forward(tokens, ...)              -> logits (B, S, V), aux [, cache]
   Transformer.init_cache(B, max_seq)            -> contiguous decode cache
   Transformer.decode_step(tokens, cache, index) -> logits (B, V) fp32, cache
 
-``forward`` returns no aux loss: the JAX package's is the MoE balance
-term, always zero for dense blocks.  The caches are lists with one dict
-per layer (JAX: one stacked dict per segment).
+``forward`` returns the reference's aux term with the logits: the sum of
+every ``moe``/``moe_swa`` layer's load-balancing loss (fp32 scalar, zero
+for a stack without MoE).  The caches are lists with one dict per layer
+(JAX: one stacked dict per segment).
 
-Only the ``dense`` block kind is ported.  ``swa`` (its ring cache),
-``moe``/``moe_swa``, ``mla``, ``mlstm``/``slstm``, ``encoder`` and the
-``hybrid`` kinds raise (ROADMAP.md, queue 1, item 9).
+Ported block kinds: ``dense``, ``swa`` (sliding-window attention over a
+ring cache), ``moe``, ``moe_swa`` and ``mla``.  ``mlstm``/``slstm``
+(ROADMAP.md, queue 1, item 9e), the ``hybrid`` kinds (9f) and ``encoder``
+(9g) raise.
 """
 from __future__ import annotations
 
@@ -23,54 +25,130 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from . import mla as mla_lib
+from . import moe as moe_lib
 from .layers import (MLP, Attention, Norm, _dense_init, apply_norm, attention,
                      mlp)
 
-PORTED_KINDS = ("dense",)
+PORTED_KINDS = ("dense", "swa", "moe", "moe_swa", "mla")
+
+#: the ROADMAP.md item that ports each block kind the port does not run
+_KIND_ITEMS = {"mlstm": "9e", "slstm": "9e", "hybrid": "9f",
+               "hybrid_global": "9f", "encoder": "9g"}
 
 
 def check_supported(cfg) -> None:
     """Raise unless the port runs every part of ``cfg``."""
     bad = sorted({k for k, _ in cfg.segments} - set(PORTED_KINDS))
     if bad:
+        items = ", ".join(sorted({_KIND_ITEMS[k] for k in bad}))
         raise NotImplementedError(
             f"{cfg.name}: block kinds {bad} are not ported; the port runs "
-            f"{list(PORTED_KINDS)} (ROADMAP.md, queue 1, item 9)")
+            f"{list(PORTED_KINDS)} (ROADMAP.md, queue 1, item {items})")
     if cfg.encoder_only:
         raise NotImplementedError(f"{cfg.name}: encoder-only models are not "
-                                  "ported (ROADMAP.md, queue 1, item 9)")
+                                  "ported (ROADMAP.md, queue 1, item 9g)")
     if cfg.mrope_sections is not None or cfg.kv_cache_dtype != "model":
         raise NotImplementedError(f"{cfg.name}: M-RoPE and the int8 KV cache "
                                   "are not ported (ROADMAP.md, queue 1, item 10)")
 
 
+def _window(kind, cfg):
+    return cfg.swa_window if kind in ("swa", "moe_swa") else None
+
+
 class Block(nn.Module):
-    """One dense block: norm1 -> attention -> norm2 -> MLP, both residual."""
+    """One block of ``kind``: norm1 -> attention (GQA, or MLA for ``mla``)
+    -> norm2 -> MLP (an MoE for ``moe``/``moe_swa``), both residual."""
 
-    def __init__(self, cfg, dtype, device):
+    def __init__(self, kind, cfg, dtype, device):
         super().__init__()
+        self.kind = kind
         self.norm1 = Norm(cfg.d_model, cfg.norm_kind, dtype, device)
-        self.attn = Attention(cfg, dtype, device)
+        if kind == "mla":
+            self.attn = mla_lib.MLA(cfg, dtype, device)
+        else:
+            self.attn = Attention(cfg, dtype, device)
         self.norm2 = Norm(cfg.d_model, cfg.norm_kind, dtype, device)
-        self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_kind, dtype, device)
+        if kind in ("moe", "moe_swa"):
+            self.moe = moe_lib.MoE(cfg, dtype, device)
+        else:
+            self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_kind, dtype, device)
 
-    def _mlp(self, x, cfg):
+    def _ffn(self, x, cfg):
+        """The second residual half; returns (x, its normed input)."""
         h2 = apply_norm(x, self.norm2, cfg.norm_kind, cfg.norm_eps)
-        return x + mlp(h2, self.mlp, cfg.mlp_kind)
+        if self.kind in ("moe", "moe_swa"):
+            return x + moe_lib.moe_mlp(h2, self.moe, cfg), h2
+        return x + mlp(h2, self.mlp, cfg.mlp_kind), h2
 
-    def forward(self, x, cfg, positions):
-        """Full sequence; returns (x, raw per-position {"k", "v"})."""
+    def forward(self, x, cfg, positions, cache_len=None):
+        """Full sequence; returns (x, aux, cache|None): the MoE balance
+        term (fp32 scalar) and, with ``cache_len``, this layer's decode
+        cache filled up to position S-1."""
         h = apply_norm(x, self.norm1, cfg.norm_kind, cfg.norm_eps)
-        a, kv = attention(h, self.attn, cfg, positions=positions)
-        return self._mlp(x + a, cfg), kv
+        if self.kind == "mla":
+            a, kv = mla_lib.mla_attention(h, self.attn, cfg,
+                                          positions=positions)
+        else:
+            a, kv = attention(h, self.attn, cfg, positions=positions,
+                              window=_window(self.kind, cfg))
+        x, h2 = self._ffn(x + a, cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if self.kind in ("moe", "moe_swa"):
+            aux = aux + moe_lib.aux_load_balance_loss(h2, self.moe, cfg)
+        cache = None
+        if cache_len is not None:
+            if self.kind == "mla":
+                cache = {n: _pad_seq(t, cache_len) for n, t in kv.items()}
+            elif _window(self.kind, cfg) is not None:
+                # min(cache_len, window + 128) slots; init_cache's ring
+                # has at least 256: both decode the same (as in JAX)
+                ring = min(cache_len, cfg.swa_window + 128)
+                cache = _ring_from_full(kv["k"], kv["v"], ring)
+            else:
+                cache = _pad_cache_to(kv, cache_len)
+        return x, aux, cache
 
     def decode(self, x, c, cfg, index, positions):
         """One token against the contiguous cache ``c`` (written in place)."""
         h = apply_norm(x, self.norm1, cfg.norm_kind, cfg.norm_eps)
-        slot = index % c["k"].shape[1]          # identity for full-length caches
-        a, nc = attention(h, self.attn, cfg, positions=positions, cache=c,
-                          cache_index=slot, true_index=index)
-        return self._mlp(x + a, cfg), nc
+        if self.kind == "mla":
+            a, nc = mla_lib.mla_attention(h, self.attn, cfg,
+                                          positions=positions, cache=c,
+                                          cache_index=index)
+        else:
+            slot = index % c["k"].shape[1]      # identity for full-length caches
+            a, nc = attention(h, self.attn, cfg, positions=positions,
+                              window=_window(self.kind, cfg), cache=c,
+                              cache_index=slot, true_index=index)
+        return self._ffn(x + a, cfg)[0], nc
+
+
+def _ring_from_full(k, v, kv_len):
+    """Ring cache from full-sequence KV (B, S, KVH, D).
+
+    Slot s holds the *latest* position p = s (mod kv_len), p < S: a pure
+    gather, so the prefill -> decode handoff is exact for SWA ring caches.
+    ``S - 1 - slots`` is negative past S: floor division, as JAX's ``//``.
+    """
+    B, S = k.shape[:2]
+    slots = torch.arange(kv_len, device=k.device)
+    pos = slots + kv_len * torch.div(S - 1 - slots, kv_len,
+                                     rounding_mode="floor")
+    valid = (pos < S) & (pos >= 0) & (slots < S)
+    safe = pos.clamp(0, S - 1)
+    keep = valid[None, :, None, None]
+    return {"k": torch.where(keep, k[:, safe], 0),
+            "v": torch.where(keep, v[:, safe], 0),
+            "pos": torch.where(valid, pos, -1).to(torch.int32)
+                        .expand(B, kv_len).contiguous()}
+
+
+def _pad_seq(t, max_seq):
+    """Zero-pad (B, S, ...) to (B, max_seq, ...)."""
+    pad = (0, 0) * (t.dim() - 2) + (0, max_seq - t.shape[1])
+    return nn.functional.pad(t, pad)
 
 
 def _pad_cache_to(kv, max_seq):
@@ -79,9 +157,7 @@ def _pad_cache_to(kv, max_seq):
     B, S = k.shape[:2]
     pos = torch.full((B, max_seq), -1, dtype=torch.int32, device=k.device)
     pos[:, :S] = torch.arange(S, dtype=torch.int32, device=k.device)
-    pad = (0, 0) * (k.dim() - 2) + (0, max_seq - S)
-    return {"k": nn.functional.pad(k, pad), "v": nn.functional.pad(v, pad),
-            "pos": pos}
+    return {"k": _pad_seq(k, max_seq), "v": _pad_seq(v, max_seq), "pos": pos}
 
 
 class Transformer(nn.Module):
@@ -102,8 +178,9 @@ class Transformer(nn.Module):
             self.unembed = nn.Parameter(torch.empty((cfg.d_model, cfg.vocab),
                                                     dtype=dtype, device=dev),
                                         requires_grad=False)
-        self.layers = nn.ModuleList(Block(cfg, dtype, dev)
-                                    for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(Block(kind, cfg, dtype, dev)
+                                    for kind, count in cfg.segments
+                                    for _ in range(count))
 
     @property
     def device(self) -> torch.device:
@@ -114,34 +191,51 @@ class Transformer(nn.Module):
 
     @torch.no_grad()
     def forward(self, tokens, build_cache_len=None, last_logit_only=False):
-        """Token ids (B, S) -> logits (B, S, V) in the model dtype; with
-        ``build_cache_len`` (prefill) also the decode cache filled up to
-        position S-1.  ``last_logit_only`` unembeds the last position only."""
+        """Token ids (B, S) -> (logits (B, S, V) in the model dtype, aux); with
+        ``build_cache_len`` (prefill) (logits, aux, cache), the decode cache
+        filled up to position S-1.  ``aux`` is the fp32 sum of the MoE
+        layers' balance terms.  ``last_logit_only`` unembeds the last
+        position only."""
         cfg = self.cfg
         x = self.embed[tokens]
         B, S = x.shape[:2]
         positions = torch.arange(S, device=x.device).expand(B, S)
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         caches = []
         for blk in self.layers:
-            x, kv = blk(x, cfg, positions)
-            if build_cache_len is not None:
-                caches.append(_pad_cache_to(kv, build_cache_len))
+            x, aux, c = blk(x, cfg, positions, build_cache_len)
+            aux_total = aux_total + aux
+            caches.append(c)
         x = apply_norm(x, self.final_norm, cfg.norm_kind, cfg.norm_eps)
         if last_logit_only:
             x = x[:, -1:]
         logits = x @ self.unembed_weight()
         if build_cache_len is not None:
-            return logits, caches
-        return logits
+            return logits, aux_total, caches
+        return logits, aux_total
+
+    def _init_block_cache(self, kind, B, max_seq):
+        cfg, dev, dtype = self.cfg, self.device, self.embed.dtype
+        if kind == "mla":
+            m = cfg.mla
+            return {"c_kv": torch.zeros((B, max_seq, m.kv_lora_rank),
+                                        dtype=dtype, device=dev),
+                    "k_rope": torch.zeros((B, max_seq, m.qk_rope_head_dim),
+                                          dtype=dtype, device=dev)}
+        kv_len = max_seq
+        if _window(kind, cfg) is not None:
+            # SWA layers keep a ring of window + slack slots; masking uses
+            # the stored true positions, so decode carries O(window) state.
+            kv_len = min(max_seq, max(cfg.swa_window + 128, 256))
+        shape = (B, kv_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                "v": torch.zeros(shape, dtype=dtype, device=dev),
+                "pos": torch.full((B, kv_len), -1, dtype=torch.int32,
+                                  device=dev)}
 
     def init_cache(self, B, max_seq):
-        cfg, dev = self.cfg, self.device
-        shape = (B, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
-        return [{"k": torch.zeros(shape, dtype=self.embed.dtype, device=dev),
-                 "v": torch.zeros(shape, dtype=self.embed.dtype, device=dev),
-                 "pos": torch.full((B, max_seq), -1, dtype=torch.int32,
-                                   device=dev)}
-                for _ in range(cfg.n_layers)]
+        return [self._init_block_cache(blk.kind, B, max_seq)
+                for blk in self.layers]
 
     @torch.no_grad()
     def decode_step(self, tokens, cache, index: int):
@@ -160,16 +254,28 @@ class Transformer(nn.Module):
         return (x[:, 0] @ self.unembed_weight()).float(), cache
 
 
+def _fan_in(name, p, cfg) -> int:
+    """The fan-in of the JAX init: d_model for the embedding, d_expert for
+    an expert ``wo`` (E, d_ff, d), else the leading axis; for the expert
+    ``wi``/``wg`` (E, d, d_ff) that is E, as ``repro/models/moe.py``
+    draws them."""
+    if name == "embed":
+        return cfg.d_model
+    if name.endswith("moe.wo"):
+        return p.shape[1]
+    return p.shape[0]
+
+
 def init_params(cfg, seed: int = 0, device=None) -> Transformer:
     """A Transformer with random weights drawn on ``device`` from ``seed``:
-    matrices normal / sqrt(fan_in) (fan_in = d_model for the embedding),
-    norm scales 1, biases 0, as the JAX init; not its bits."""
+    matrices and expert stacks normal / sqrt(fan_in) (``_fan_in``), norm
+    scales 1, biases 0, as the JAX init; not its bits."""
     model = Transformer(cfg, device=device)
     g = torch.Generator(device=model.device)
     g.manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if p.dim() == 2:
-                fan_in = cfg.d_model if name == "embed" else p.shape[0]
-                p.copy_(_dense_init(p.shape, p.dtype, g, p.device, fan_in))
+            if p.dim() >= 2:
+                p.copy_(_dense_init(p.shape, p.dtype, g, p.device,
+                                    _fan_in(name, p, cfg)))
     return model

@@ -18,6 +18,12 @@ batch's write slots up once (one descent for all B x S prefill positions,
 one per decode step) and scatters per layer.  No index write happens
 between those lookups, so the pages written are the same.
 
+The paged decoder serves ``dense`` and ``swa`` stacks, as the JAX
+engine's does; MoE and MLA stacks decode through ``serve/steps.py``.  On
+``swa`` layers the paged decode attends over every position with no
+window, as the JAX engine does (its prefill is windowed); the contiguous
+``decode_step`` applies the window (ROADMAP.md §3 records the gap).
+
 Pages stay fp32 whatever the model dtype, as in the JAX engine.  The
 decoder times its page-index work per decode step (``index_s``), the
 engine its prefills and steps (``prefill_s``, ``step_s``), on the host
@@ -47,10 +53,18 @@ class Request:
     done: bool = False
 
 
+#: block kinds the paged decoder serves (the JAX engine's)
+PAGED_KINDS = ("dense", "swa")
+
+
 class PagedDecoder:
-    """Single-token decode for a dense stack over paged KV."""
+    """Single-token decode for dense/swa stacks over paged KV."""
 
     def __init__(self, cfg, model, cache: PagedKVCache):
+        if any(k not in PAGED_KINDS for k, _ in cfg.segments):
+            raise ValueError(f"{cfg.name}: the paged decode path supports "
+                             f"attention backbones ({'/'.join(PAGED_KINDS)} "
+                             f"blocks), not {cfg.segments}")
         self.cfg, self.model, self.cache = cfg, model, cache
         #: host seconds of page-index work per decode step, by part
         self.index_s: dict[str, list[float]] = {k: [] for k in INDEX_PARTS}
@@ -63,8 +77,14 @@ class PagedDecoder:
         seq_ids = np.asarray(seq_ids)
         for sid in seq_ids:
             self.cache.extend(int(sid), S)
-        logits, kv_cache = self.model(tokens, build_cache_len=S,
-                                      last_logit_only=True)
+        logits, _aux, kv_cache = self.model(tokens, build_cache_len=S,
+                                            last_logit_only=True)
+        if any(c["k"].shape[1] != S for c in kv_cache):
+            raise ValueError(
+                f"a {S}-token prompt is past an swa layer's prefill ring of "
+                f"window + 128 = {self.cfg.swa_window + 128} slots; the paged "
+                "prefill copies every prompt position (the JAX engine "
+                "cannot serve it either)")
         pages, slots = self.cache.lookup(seq_ids[:, None],
                                          np.arange(S)[None, :])
         for li, c in enumerate(kv_cache):

@@ -1,7 +1,9 @@
 """Serving steps (prefill and decode) over a port ``Transformer``.
 
 The port of ``repro/serve/steps.py``'s token paths (the encoder-only step
-is not ported: ROADMAP.md, queue 1, item 9).
+is not ported: ROADMAP.md, queue 1, item 9g).  These are the entry
+points of every ported arch; the MoE and MLA stacks decode only here (the
+paged engine serves dense and swa stacks, as the reference's).
 """
 from __future__ import annotations
 
@@ -11,8 +13,9 @@ import torch
 def make_prefill_step(cfg, cache_len: int):
     """(model, {"tokens"}) -> (last_logits (B,1,V), cache)."""
     def prefill(model, batch):
-        return model(batch["tokens"], build_cache_len=cache_len,
-                     last_logit_only=True)
+        logits, _aux, cache = model(batch["tokens"], build_cache_len=cache_len,
+                                    last_logit_only=True)
+        return logits, cache
     return prefill
 
 

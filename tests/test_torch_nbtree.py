@@ -414,6 +414,9 @@ def test_port_imports_neither_jax_nor_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
+    scanned = {p.relative_to(ROOT).as_posix() for p in files}
+    assert {"src/repro_torch/models/moe.py",
+            "src/repro_torch/models/mla.py"} <= scanned
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

@@ -70,7 +70,7 @@ def test_forward_and_prefill_cache_match_jax(models):
     lt, ct = make_prefill_step(models.cfg, 16)(
         models.model, {"tokens": torch.from_numpy(toks).long()})
     _close(lj[:, -1:], lt)
-    _close(lj, models.model(torch.from_numpy(toks).long()))
+    _close(lj, models.model(torch.from_numpy(toks).long())[0])
     assert len(ct) == models.cfg.n_layers
     for li, c in enumerate(ct):
         for name in ("k", "v", "pos"):
@@ -82,7 +82,7 @@ def test_decode_steps_match_jax(models):
     toks = rng.integers(1, 512, (2, 6)).astype(np.int32)
     _, _, cj = JT.forward(models.params, models.jcfg, tokens=jnp.asarray(toks),
                           build_cache_len=10)
-    _, ct = models.model(torch.from_numpy(toks).long(), build_cache_len=10)
+    _, _, ct = models.model(torch.from_numpy(toks).long(), build_cache_len=10)
     step = make_serve_step(models.cfg)
     tok = toks[:, -1]
     for s in range(4):
@@ -134,12 +134,12 @@ def test_init_params_is_seeded():
 
 def test_unported_parts_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        registry.get_config("mixtral-8x22b")
+        registry.get_config("xlstm-1.3b")
     with pytest.raises(KeyError):
         registry.get_config("no-such-arch")
-    moe = dataclasses.replace(_reduced(registry), segments=(("moe", 2),))
-    with pytest.raises(NotImplementedError, match="moe"):
-        Transformer(moe, device="cpu")
+    mlstm = dataclasses.replace(_reduced(registry), segments=(("mlstm", 2),))
+    with pytest.raises(NotImplementedError, match="mlstm"):
+        Transformer(mlstm, device="cpu")
     cfg = _reduced(registry)
     model = init_params(cfg, device="cpu")
     S = int((BLOCKWISE_THRESHOLD / cfg.n_heads) ** 0.5) + 1   # B*S*S*H above
