@@ -8,7 +8,7 @@ One ``ModelConfig`` instance per architecture the port serves lives in
 JAX package runs each group as one ``lax.scan`` over stacked parameters;
 the port keeps the same description and runs one module per layer
 (``models/transformer.py``).  ``BLOCK_KINDS`` lists every kind the
-reference knows; ``models/registry.py`` says which archs the port serves.
+reference knows; ``models/registry.py`` lists the archs.
 """
 from __future__ import annotations
 
@@ -17,8 +17,7 @@ from typing import Optional, Tuple
 
 Segments = Tuple[Tuple[str, int], ...]
 
-#: block kinds of the JAX package (``models/transformer.PORTED_KINDS`` says
-#: which the port runs)
+#: block kinds of the JAX package (the port runs every one)
 BLOCK_KINDS = (
     "dense",          # full causal attention + MLP
     "swa",            # sliding-window attention + MLP

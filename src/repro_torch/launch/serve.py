@@ -6,7 +6,9 @@
 Without ``--reduced`` it serves the arch at full width in its config's
 dtype (qwen3-8b: bf16, ~16.4 GB of weights), which needs the card.  The
 paged engine serves dense and swa stacks (qwen3-8b, gemma-2b,
-starcoder2-3b); for any other arch the CLI exits, as the JAX one does.
+starcoder2-3b, qwen2-vl-2b: its text positions make M-RoPE plain RoPE);
+for any other arch (MoE, MLA, recurrent, hybrid, encoder) the CLI exits
+with the JAX one's message.
 ``--device`` defaults to ``cuda``.  Weights are random, drawn from seed 0.
 """
 from __future__ import annotations

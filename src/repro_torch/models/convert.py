@@ -4,10 +4,13 @@
 numpy arrays (``jax.tree.map(np.asarray, init_params(key, cfg))``) and
 returns a :class:`Transformer` holding the same values: each ``seg{i}``
 leaf's leading (layer) axis is unstacked into that segment's per-layer
-modules.  The MoE tree (3-D expert leaves, ``shared``, the fp32 router)
-and the MLA names carry across under the same names.  The port's forward
-then computes what the JAX forward computes, which is how the tests
-compare the two.
+modules.  Every block tree carries across under its names: the MoE
+tree (3-D expert leaves, ``shared``, the fp32 router), MLA's, the
+recurrent ``cell`` of mlstm/slstm, and the hybrid kinds' Mamba ``cell``
+(with its fp32 ``a_log``, ``d_skip``, ``dt_bias`` in a bf16 model) beside
+``attn_norm`` and ``ssm_norm``.  Shapes and dtypes must match leaf by
+leaf.  The port's forward then computes what the JAX forward computes,
+which is how the tests compare the two.
 """
 from __future__ import annotations
 

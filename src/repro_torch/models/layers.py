@@ -1,20 +1,18 @@
-"""Transformer layers in PyTorch: norms, RoPE, GQA attention, MLPs.
+"""Transformer layers in PyTorch: norms, RoPE/M-RoPE, GQA attention, MLPs.
 
-The port of ``repro/models/layers.py`` for the attention backbones (full
-and sliding-window causal attention).  Conventions kept from the JAX
+The port of ``repro/models/layers.py``.  Conventions kept from the JAX
 package:
 
   * weights keep the JAX layout, ``(in, out)``, so ``x @ w`` reads as
     there and ``models/convert.py`` copies a JAX param tree across as it is;
   * all softmax / norm statistics accumulate in fp32;
-  * attention is the einsum form of ``_sdpa`` with -1e30 masking; the
-    contiguous decode cache is ``(B, S_max, KVH, D)`` plus stored positions.
-    Where JAX returns an updated copy (``dynamic_update_slice``), the port
-    writes the new token into the cache tensors in place.
-
-Not ported (ROADMAP.md, queue 1, item 10): M-RoPE, the int8 KV cache and
-blockwise attention.  ``attention`` raises where the JAX code would take
-one of them; it never does something else quietly.
+  * attention is the einsum form of ``_sdpa`` with -1e30 masking, or
+    ``blockwise_attn.blockwise_sdpa`` where the score tensor would pass
+    ``BLOCKWISE_THRESHOLD`` elements; the contiguous decode cache is
+    ``(B, S_max, KVH, D)`` plus stored positions, int8 with per (token,
+    kv-head) fp32 scales when the cache tensors are int8.  Where JAX
+    returns an updated copy (``dynamic_update_slice``), the port writes
+    the new token into the cache tensors in place.
 """
 from __future__ import annotations
 
@@ -24,13 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-#: score-tensor element threshold above which the JAX package's attention
-#: goes blockwise (``repro/models/blockwise_attn.py``).
-BLOCKWISE_THRESHOLD = 32 * 1024 * 1024
-
-
-def should_use_blockwise(B, S, T, H) -> bool:
-    return B * S * T * H > BLOCKWISE_THRESHOLD
+from .blockwise_attn import blockwise_sdpa, should_use_blockwise
 
 
 # --------------------------------------------------------------------- init
@@ -98,6 +90,25 @@ def apply_rope(x, cos, sin):
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], -1).to(x.dtype)
 
 
+def mrope_angles(positions, dim, base, sections):
+    """M-RoPE (Qwen2-VL): rotary dims partitioned into (t, h, w) sections.
+
+    positions: (3, B, S), the temporal/height/width position ids.  For
+    pure text the three rows are equal and M-RoPE is RoPE exactly.
+    """
+    half = dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {sections} must sum to {half}")
+    cos_all, sin_all = rope_angles(positions, dim, base)   # (3, B, S, half)
+    chunks_c, chunks_s = [], []
+    start = 0
+    for i, sec in enumerate(sections):
+        chunks_c.append(cos_all[i, ..., start:start + sec])
+        chunks_s.append(sin_all[i, ..., start:start + sec])
+        start += sec
+    return torch.cat(chunks_c, -1), torch.cat(chunks_s, -1)
+
+
 # ---------------------------------------------------------------- attention
 class Attention(nn.Module):
     """GQA projection weights (``wq wk wv wo``, optional q/k norm scales)."""
@@ -114,6 +125,15 @@ class Attention(nn.Module):
                                        requires_grad=False)
             self.k_norm = nn.Parameter(torch.ones(hd, dtype=dtype, device=device),
                                        requires_grad=False)
+
+
+def _quantize_kv(t):
+    """(B,S,KVH,D) -> int8 values + (B,S,KVH) fp32 symmetric scales
+    (``torch.round`` rounds half to even, as ``jnp.round``)."""
+    tf = t.float()
+    scale = torch.clamp(tf.abs().amax(dim=-1), min=1e-8) / 127.0
+    w = torch.clamp(torch.round(tf / scale[..., None]), -127, 127)
+    return w.to(torch.int8), scale
 
 
 def _sdpa(q, k, v, mask):
@@ -154,58 +174,79 @@ def project_qkv(x, p, cfg, cos, sin):
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def attention(x, p, cfg, *, positions, window=None, cache=None,
-              cache_index=None, true_index=None):
-    """Full-sequence causal or single-step (cache) attention; ``window``
-    enables SWA (a key attends if it is at most ``window - 1`` positions
-    behind the query).
+def attention(x, p, cfg, *, positions, kind="causal", window=None,
+              cache=None, cache_index=None, true_index=None,
+              mrope_positions=None):
+    """Full-sequence or single-step (cache) attention.
+
+    ``kind`` is ``"causal"`` or ``"bidir"``; ``window`` enables SWA (a key
+    attends if it is at most ``window - 1`` positions behind the query).
+    With ``cfg.mrope_sections``, M-RoPE over ``mrope_positions`` (3, B,
+    S), whose rows default to ``positions``; else RoPE over ``positions``.
 
     Without ``cache``: x (B, S, d); returns (out, {"k", "v"}), the raw
     per-position KV for a prefill cache.  With ``cache`` = dict(k, v, pos)
     of (B, kv_len, ...), a *ring* when kv_len < context: the new KV of x
     (B, 1, d) is written in place at slot ``cache_index`` (= true_index %
     kv_len) and masking uses the stored true positions, so rolled-over
-    slots are handled exactly.  Returns (out, cache).  The reference's
-    ``kind="bidir"`` belongs to the encoder block, which is not ported
-    (ROADMAP.md, queue 1, item 9g).
+    slots are handled exactly.  An int8 cache (``k``/``v`` int8, plus
+    ``k_scale``/``v_scale``) stores the token quantized and attends over
+    the dequantized cache: the cache tensor's dtype picks the path, as in
+    the reference.  Returns (out, cache).
     """
-    if cfg.mrope_sections is not None:
-        raise NotImplementedError("M-RoPE is not ported (ROADMAP.md, queue 1, "
-                                  "item 10)")
     B, S, _ = x.shape
-    cos, sin = rope_angles(positions, cfg.resolved_head_dim, cfg.rope_base)
+    hd = cfg.resolved_head_dim
+    if cfg.mrope_sections is not None:
+        pos3 = mrope_positions
+        if pos3 is None:
+            pos3 = positions.expand((3,) + tuple(positions.shape))
+        cos, sin = mrope_angles(pos3, hd, cfg.rope_base, cfg.mrope_sections)
+    else:
+        cos, sin = rope_angles(positions, hd, cfg.rope_base)
     q, k, v = project_qkv(x, p, cfg, cos, sin)
 
     if cache is None:
         if should_use_blockwise(B, S, S, cfg.n_heads):
-            raise NotImplementedError(
-                f"B*S*S*H = {B * S * S * cfg.n_heads} > {BLOCKWISE_THRESHOLD}: "
-                "the reference attends blockwise here, which is not ported "
-                "(ROADMAP.md, queue 1, item 10)")
-        mask = causal_mask(S, window=window, device=x.device)
-        out = _sdpa(q, k, v, mask.expand(B, S, S))
+            out = blockwise_sdpa(q, k, v, qpos=positions, kpos=positions,
+                                 kind=kind, window=window)
+        else:
+            if kind == "causal":
+                mask = causal_mask(S, window=window, device=x.device)
+            else:
+                mask = torch.ones((S, S), dtype=torch.bool, device=x.device)
+            out = _sdpa(q, k, v, mask.expand(B, S, S))
         new_cache = {"k": k, "v": v}
     else:
-        if cache["k"].dtype == torch.int8:
-            raise NotImplementedError("the int8 KV cache is not ported "
-                                      "(ROADMAP.md, queue 1, item 10)")
         tidx = true_index if true_index is not None else cache_index
         ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
-        ck[:, cache_index:cache_index + S] = k
-        cv[:, cache_index:cache_index + S] = v
+        quant = ck.dtype == torch.int8
+        at = slice(cache_index, cache_index + S)
+        if quant:
+            ck[:, at], cache["k_scale"][:, at] = _quantize_kv(k)
+            cv[:, at], cache["v_scale"][:, at] = _quantize_kv(v)
+        else:
+            ck[:, at] = k
+            cv[:, at] = v
         cpos[:, cache_index:cache_index + 1] = tidx
         T = ck.shape[1]
         if should_use_blockwise(B, 1, T, cfg.n_heads):
-            raise NotImplementedError(
-                f"B*T*H = {B * T * cfg.n_heads} > {BLOCKWISE_THRESHOLD}: the "
-                "reference decodes blockwise here, which is not ported "
-                "(ROADMAP.md, queue 1, item 10)")
-        m = (cpos <= tidx) & (cpos >= 0)
-        if window is not None:
-            m = m & (cpos > tidx - window)
-        out = _sdpa(q, ck, cv, m[:, None, :]).to(x.dtype)
+            # decode masking == causal against the stored positions
+            qpos = torch.full((B, 1), tidx, dtype=torch.int32,
+                              device=x.device)
+            scales = (cache["k_scale"], cache["v_scale"]) if quant else None
+            out = blockwise_sdpa(q, ck, cv, qpos=qpos, kpos=cpos,
+                                 kind="causal", window=window,
+                                 kv_scales=scales)
+        else:
+            m = (cpos <= tidx) & (cpos >= 0)
+            if window is not None:
+                m = m & (cpos > tidx - window)
+            if quant:
+                ck = ck.float() * cache["k_scale"][..., None]
+                cv = cv.float() * cache["v_scale"][..., None]
+            out = _sdpa(q, ck, cv, m[:, None, :]).to(x.dtype)
         new_cache = cache
-    out = out.reshape(B, S, cfg.n_heads * cfg.resolved_head_dim) @ p.wo
+    out = out.reshape(B, S, cfg.n_heads * hd) @ p.wo
     return out, new_cache
 
 

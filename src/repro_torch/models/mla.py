@@ -13,8 +13,8 @@ import math
 import torch
 from torch import nn
 
-from .layers import (BLOCKWISE_THRESHOLD, _weight, apply_rope, rms_norm,
-                     rope_angles, should_use_blockwise)
+from .blockwise_attn import blockwise_sdpa, should_use_blockwise
+from .layers import _weight, apply_rope, rms_norm, rope_angles
 
 
 class MLA(nn.Module):
@@ -47,8 +47,9 @@ def mla_attention(x, p, cfg, *, positions, cache=None, cache_index=None):
     """Returns (out, cache).
 
     Without ``cache``: x (B, S, d), causal attention over K/V built from
-    the latent; the cache returned is the raw per-position
-    dict(c_kv (B, S, R), k_rope (B, S, Dr)).  With ``cache`` (the same
+    the latent, blockwise past ``BLOCKWISE_THRESHOLD`` (V is
+    ``v_head_dim`` wide, Q/K ``qk_nope + qk_rope``); the cache returned
+    is the raw per-position dict(c_kv (B, S, R), k_rope (B, S, Dr)).  With ``cache`` (the same
     keys, (B, T, ...)): x (B, 1, d) is written in place at slot
     ``cache_index`` (int) and attends in the *absorbed* form, which reads
     only the latent cache; slots up to ``cache_index`` attend (no stored
@@ -73,23 +74,22 @@ def mla_attention(x, p, cfg, *, positions, cache=None, cache_index=None):
     k_rope_new = apply_rope(k_rope_new, cos, sin)[:, :, 0]  # (B, S, Dr)
 
     if cache is None:
-        if should_use_blockwise(B, S, S, H):
-            raise NotImplementedError(
-                f"B*S*S*H = {B * S * S * H} > {BLOCKWISE_THRESHOLD}: the "
-                "reference attends blockwise here, which is not ported "
-                "(ROADMAP.md, queue 1, item 10)")
         k_nope = (c_kv @ p.wk_up).reshape(B, S, H, nope)
         v = (c_kv @ p.wv_up).reshape(B, S, H, m.v_head_dim)
         k_cat = torch.cat([k_nope, k_rope_new[:, :, None, :].expand(
             B, S, H, rope)], -1)
         q_cat = torch.cat([q_nope, q_rope], -1)           # (B, S, H, qk_dim)
-        sc = torch.einsum("bshd,bthd->bhst", q_cat.float(),
-                          k_cat.float()) / math.sqrt(qk_dim)
-        idx = torch.arange(S, device=x.device)
-        mask = idx[None, :] <= idx[:, None]
-        sc = torch.where(mask[None, None], sc, -1e30)
-        w = torch.softmax(sc, dim=-1)
-        out = torch.einsum("bhst,bthd->bshd", w, v.float())
+        if should_use_blockwise(B, S, S, H):
+            out = blockwise_sdpa(q_cat, k_cat, v, qpos=positions,
+                                 kpos=positions, kind="causal")
+        else:
+            sc = torch.einsum("bshd,bthd->bhst", q_cat.float(),
+                              k_cat.float()) / math.sqrt(qk_dim)
+            idx = torch.arange(S, device=x.device)
+            mask = idx[None, :] <= idx[:, None]
+            sc = torch.where(mask[None, None], sc, -1e30)
+            w = torch.softmax(sc, dim=-1)
+            out = torch.einsum("bhst,bthd->bshd", w, v.float())
         out = out.reshape(B, S, H * m.v_head_dim).to(x.dtype) @ p.wo
         return out, {"c_kv": c_kv, "k_rope": k_rope_new}
 

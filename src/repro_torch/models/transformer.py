@@ -1,23 +1,26 @@
-"""The segmented transformer in PyTorch: the attention-backbone block kinds.
+"""The segmented transformer in PyTorch: every block kind of the reference.
 
 The port of ``repro/models/transformer.py``: ``Transformer`` holds one
 ``Block`` per layer (the JAX package scans stacked parameters; the port
 runs a Python loop over modules).  Entry points:
 
   init_params(cfg, seed, device)                -> Transformer, random weights
-  Transformer.forward(tokens, ...)              -> logits (B, S, V), aux [, cache]
+  Transformer.forward(tokens | embeds, ...)     -> logits (B, S, V), aux [, cache]
   Transformer.init_cache(B, max_seq)            -> contiguous decode cache
   Transformer.decode_step(tokens, cache, index) -> logits (B, V) fp32, cache
 
 ``forward`` returns the reference's aux term with the logits: the sum of
 every ``moe``/``moe_swa`` layer's load-balancing loss (fp32 scalar, zero
-for a stack without MoE).  The caches are lists with one dict per layer
-(JAX: one stacked dict per segment).
+for a stack without MoE).  The caches are lists with one entry per layer
+(JAX: one stacked pytree per segment): a KV dict for the attention
+kinds, the recurrent state tuple for ``mlstm``/``slstm``, and
+``{"kv": KV dict, "ssm": (s, conv tail)}`` for the hybrid kinds.
 
-Ported block kinds: ``dense``, ``swa`` (sliding-window attention over a
-ring cache), ``moe``, ``moe_swa`` and ``mla``.  ``mlstm``/``slstm``
-(ROADMAP.md, queue 1, item 9e), the ``hybrid`` kinds (9f) and ``encoder``
-(9g) raise.
+Block kinds: ``dense``, ``swa`` (sliding-window attention over a ring
+cache), ``moe``, ``moe_swa``, ``mla``, ``encoder`` (bidirectional
+attention), ``mlstm``/``slstm`` (xLSTM cells, ``models/ssm.py``) and
+``hybrid``/``hybrid_global`` (hymba: attention, windowed for ``hybrid``,
+beside a Mamba SSM on the same input).
 """
 from __future__ import annotations
 
@@ -27,48 +30,46 @@ from torch import nn
 from ..device import resolve_device
 from . import mla as mla_lib
 from . import moe as moe_lib
+from . import ssm as ssm_lib
 from .layers import (MLP, Attention, Norm, _dense_init, apply_norm, attention,
                      mlp)
 
-PORTED_KINDS = ("dense", "swa", "moe", "moe_swa", "mla")
-
-#: the ROADMAP.md item that ports each block kind the port does not run
-_KIND_ITEMS = {"mlstm": "9e", "slstm": "9e", "hybrid": "9f",
-               "hybrid_global": "9f", "encoder": "9g"}
-
-
-def check_supported(cfg) -> None:
-    """Raise unless the port runs every part of ``cfg``."""
-    bad = sorted({k for k, _ in cfg.segments} - set(PORTED_KINDS))
-    if bad:
-        items = ", ".join(sorted({_KIND_ITEMS[k] for k in bad}))
-        raise NotImplementedError(
-            f"{cfg.name}: block kinds {bad} are not ported; the port runs "
-            f"{list(PORTED_KINDS)} (ROADMAP.md, queue 1, item {items})")
-    if cfg.encoder_only:
-        raise NotImplementedError(f"{cfg.name}: encoder-only models are not "
-                                  "ported (ROADMAP.md, queue 1, item 9g)")
-    if cfg.mrope_sections is not None or cfg.kv_cache_dtype != "model":
-        raise NotImplementedError(f"{cfg.name}: M-RoPE and the int8 KV cache "
-                                  "are not ported (ROADMAP.md, queue 1, item 10)")
+HYBRID_KINDS = ("hybrid", "hybrid_global")
+CELLS = {"mlstm": (ssm_lib.MLSTM, ssm_lib.mlstm_block),
+         "slstm": (ssm_lib.SLSTM, ssm_lib.slstm_block)}
 
 
 def _window(kind, cfg):
-    return cfg.swa_window if kind in ("swa", "moe_swa") else None
+    return cfg.swa_window if kind in ("swa", "moe_swa", "hybrid") else None
+
+
+def _norm(x, p, cfg):
+    return apply_norm(x, p, cfg.norm_kind, cfg.norm_eps)
 
 
 class Block(nn.Module):
-    """One block of ``kind``: norm1 -> attention (GQA, or MLA for ``mla``)
-    -> norm2 -> MLP (an MoE for ``moe``/``moe_swa``), both residual."""
+    """One block of ``kind``.  Attention kinds: norm1 -> attention (GQA,
+    bidirectional for ``encoder``; MLA for ``mla``) -> norm2 -> MLP (an MoE
+    for ``moe``/``moe_swa``), both residual.  ``mlstm``/``slstm``: norm1 ->
+    the cell, residual.  Hybrid kinds: norm1 -> attention and a Mamba
+    ``cell`` on the same input, each normed (``attn_norm``, ``ssm_norm``),
+    ``x + 0.5 * (a + s)``, then norm2 -> MLP."""
 
     def __init__(self, kind, cfg, dtype, device):
         super().__init__()
         self.kind = kind
         self.norm1 = Norm(cfg.d_model, cfg.norm_kind, dtype, device)
+        if kind in CELLS:
+            self.cell = CELLS[kind][0](cfg, dtype, device)
+            return
         if kind == "mla":
             self.attn = mla_lib.MLA(cfg, dtype, device)
         else:
             self.attn = Attention(cfg, dtype, device)
+        if kind in HYBRID_KINDS:
+            self.cell = ssm_lib.Mamba(cfg, dtype, device)
+            self.attn_norm = Norm(cfg.d_model, cfg.norm_kind, dtype, device)
+            self.ssm_norm = Norm(cfg.d_model, cfg.norm_kind, dtype, device)
         self.norm2 = Norm(cfg.d_model, cfg.norm_kind, dtype, device)
         if kind in ("moe", "moe_swa"):
             self.moe = moe_lib.MoE(cfg, dtype, device)
@@ -77,52 +78,80 @@ class Block(nn.Module):
 
     def _ffn(self, x, cfg):
         """The second residual half; returns (x, its normed input)."""
-        h2 = apply_norm(x, self.norm2, cfg.norm_kind, cfg.norm_eps)
+        h2 = _norm(x, self.norm2, cfg)
         if self.kind in ("moe", "moe_swa"):
             return x + moe_lib.moe_mlp(h2, self.moe, cfg), h2
         return x + mlp(h2, self.mlp, cfg.mlp_kind), h2
 
-    def forward(self, x, cfg, positions, cache_len=None):
+    def _mix(self, x, a, s, cfg):
+        """The hybrid kinds' join of attention ``a`` and SSM ``s``."""
+        a = _norm(a, self.attn_norm, cfg)
+        s = _norm(s, self.ssm_norm, cfg)
+        return x + 0.5 * (a + s)
+
+    def forward(self, x, cfg, positions, cache_len=None,
+                mrope_positions=None):
         """Full sequence; returns (x, aux, cache|None): the MoE balance
         term (fp32 scalar) and, with ``cache_len``, this layer's decode
         cache filled up to position S-1."""
-        h = apply_norm(x, self.norm1, cfg.norm_kind, cfg.norm_eps)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        h = _norm(x, self.norm1, cfg)
+        if self.kind in CELLS:
+            out, st = CELLS[self.kind][1](h, self.cell, cfg)
+            return x + out, aux, st if cache_len is not None else None
+        window = _window(self.kind, cfg)
         if self.kind == "mla":
             a, kv = mla_lib.mla_attention(h, self.attn, cfg,
                                           positions=positions)
         else:
             a, kv = attention(h, self.attn, cfg, positions=positions,
-                              window=_window(self.kind, cfg))
-        x, h2 = self._ffn(x + a, cfg)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+                              kind="bidir" if self.kind == "encoder"
+                              else "causal", window=window,
+                              mrope_positions=mrope_positions)
+        if self.kind in HYBRID_KINDS:
+            s, st = ssm_lib.mamba_block(h, self.cell, cfg)
+            x, h2 = self._ffn(self._mix(x, a, s, cfg), cfg)
+        else:
+            x, h2 = self._ffn(x + a, cfg)
         if self.kind in ("moe", "moe_swa"):
             aux = aux + moe_lib.aux_load_balance_loss(h2, self.moe, cfg)
         cache = None
         if cache_len is not None:
             if self.kind == "mla":
                 cache = {n: _pad_seq(t, cache_len) for n, t in kv.items()}
-            elif _window(self.kind, cfg) is not None:
+            elif window is not None:
                 # min(cache_len, window + 128) slots; init_cache's ring
                 # has at least 256: both decode the same (as in JAX)
-                ring = min(cache_len, cfg.swa_window + 128)
+                ring = min(cache_len, window + 128)
                 cache = _ring_from_full(kv["k"], kv["v"], ring)
             else:
                 cache = _pad_cache_to(kv, cache_len)
+            if self.kind in HYBRID_KINDS:
+                cache = {"kv": cache, "ssm": st}
         return x, aux, cache
 
     def decode(self, x, c, cfg, index, positions):
-        """One token against the contiguous cache ``c`` (written in place)."""
-        h = apply_norm(x, self.norm1, cfg.norm_kind, cfg.norm_eps)
+        """One token against this layer's cache entry ``c`` (KV written in
+        place); returns (x, the layer's new cache entry)."""
+        h = _norm(x, self.norm1, cfg)
+        if self.kind in CELLS:
+            out, st = CELLS[self.kind][1](h, self.cell, cfg, state=c)
+            return x + out, st
         if self.kind == "mla":
             a, nc = mla_lib.mla_attention(h, self.attn, cfg,
                                           positions=positions, cache=c,
                                           cache_index=index)
-        else:
-            slot = index % c["k"].shape[1]      # identity for full-length caches
-            a, nc = attention(h, self.attn, cfg, positions=positions,
-                              window=_window(self.kind, cfg), cache=c,
-                              cache_index=slot, true_index=index)
-        return self._ffn(x + a, cfg)[0], nc
+            return self._ffn(x + a, cfg)[0], nc
+        kv = c["kv"] if self.kind in HYBRID_KINDS else c
+        slot = index % kv["k"].shape[1]     # identity for full-length caches
+        a, kv = attention(h, self.attn, cfg, positions=positions,
+                          window=_window(self.kind, cfg), cache=kv,
+                          cache_index=slot, true_index=index)
+        if self.kind not in HYBRID_KINDS:
+            return self._ffn(x + a, cfg)[0], kv
+        s, st = ssm_lib.mamba_block(h, self.cell, cfg, state=c["ssm"])
+        return self._ffn(self._mix(x, a, s, cfg), cfg)[0], {"kv": kv,
+                                                             "ssm": st}
 
 
 def _ring_from_full(k, v, kv_len):
@@ -161,12 +190,12 @@ def _pad_cache_to(kv, max_seq):
 
 
 class Transformer(nn.Module):
-    """Weights are allocated uninitialised on ``device`` in ``cfg.dtype``;
-    fill them with :func:`init_params` or ``convert.params_from_reference``."""
+    """Weights are allocated uninitialised on ``device`` in ``cfg.dtype``
+    (the Mamba leaves ``a_log``, ``d_skip``, ``dt_bias`` in fp32); fill
+    them with :func:`init_params` or ``convert.params_from_reference``."""
 
     def __init__(self, cfg, *, device=None):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         dev = resolve_device(device)
         dtype = getattr(torch, cfg.dtype)
@@ -190,23 +219,30 @@ class Transformer(nn.Module):
         return self.embed.T if self.cfg.tie_embeddings else self.unembed
 
     @torch.no_grad()
-    def forward(self, tokens, build_cache_len=None, last_logit_only=False):
-        """Token ids (B, S) -> (logits (B, S, V) in the model dtype, aux); with
-        ``build_cache_len`` (prefill) (logits, aux, cache), the decode cache
-        filled up to position S-1.  ``aux`` is the fp32 sum of the MoE
-        layers' balance terms.  ``last_logit_only`` unembeds the last
-        position only."""
+    def forward(self, tokens=None, embeds=None, mrope_positions=None,
+                build_cache_len=None, last_logit_only=False):
+        """Token ids (B, S), or precomputed frame/patch ``embeds`` (B, S, d)
+        (cast to the model dtype), -> (logits (B, S, V) in the model dtype,
+        aux); with ``build_cache_len`` (prefill) (logits, aux, cache), the
+        decode cache filled up to position S-1.  ``mrope_positions``
+        (3, B, S) feed M-RoPE.  ``aux`` is the fp32 sum of the MoE layers'
+        balance terms.  ``last_logit_only`` unembeds the last position
+        only."""
         cfg = self.cfg
-        x = self.embed[tokens]
+        if embeds is None:
+            x = self.embed[tokens]
+        else:
+            x = embeds.to(self.embed.dtype)
         B, S = x.shape[:2]
         positions = torch.arange(S, device=x.device).expand(B, S)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         caches = []
         for blk in self.layers:
-            x, aux, c = blk(x, cfg, positions, build_cache_len)
+            x, aux, c = blk(x, cfg, positions, build_cache_len,
+                            mrope_positions)
             aux_total = aux_total + aux
             caches.append(c)
-        x = apply_norm(x, self.final_norm, cfg.norm_kind, cfg.norm_eps)
+        x = _norm(x, self.final_norm, cfg)
         if last_logit_only:
             x = x[:, -1:]
         logits = x @ self.unembed_weight()
@@ -216,24 +252,46 @@ class Transformer(nn.Module):
 
     def _init_block_cache(self, kind, B, max_seq):
         cfg, dev, dtype = self.cfg, self.device, self.embed.dtype
+        f32 = dict(dtype=torch.float32, device=dev)
         if kind == "mla":
             m = cfg.mla
             return {"c_kv": torch.zeros((B, max_seq, m.kv_lora_rank),
                                         dtype=dtype, device=dev),
                     "k_rope": torch.zeros((B, max_seq, m.qk_rope_head_dim),
                                           dtype=dtype, device=dev)}
+        if kind == "mlstm":
+            H, dk = cfg.n_heads, cfg.d_model // cfg.n_heads
+            return (torch.zeros((B, H, dk, dk), **f32),
+                    torch.zeros((B, H, dk), **f32), torch.zeros((B, H), **f32))
+        if kind == "slstm":
+            return tuple(torch.zeros((B, cfg.d_model), **f32)
+                         for _ in range(4))
         kv_len = max_seq
         if _window(kind, cfg) is not None:
             # SWA layers keep a ring of window + slack slots; masking uses
             # the stored true positions, so decode carries O(window) state.
             kv_len = min(max_seq, max(cfg.swa_window + 128, 256))
+        int8 = cfg.kv_cache_dtype == "int8"
         shape = (B, kv_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                "v": torch.zeros(shape, dtype=dtype, device=dev),
-                "pos": torch.full((B, kv_len), -1, dtype=torch.int32,
-                                  device=dev)}
+        kv_dtype = torch.int8 if int8 else dtype
+        kv = {"k": torch.zeros(shape, dtype=kv_dtype, device=dev),
+              "v": torch.zeros(shape, dtype=kv_dtype, device=dev),
+              "pos": torch.full((B, kv_len), -1, dtype=torch.int32,
+                                device=dev)}
+        if int8:
+            kv["k_scale"] = torch.zeros(shape[:3], **f32)
+            kv["v_scale"] = torch.zeros(shape[:3], **f32)
+        if kind in HYBRID_KINDS:
+            di = cfg.ssm_expand * cfg.d_model
+            return {"kv": kv, "ssm": (
+                torch.zeros((B, di, cfg.ssm_state), **f32),
+                torch.zeros((B, cfg.conv_width - 1, di), dtype=dtype,
+                            device=dev))}
+        return kv
 
     def init_cache(self, B, max_seq):
+        """The decode cache, one entry per layer (module docstring); KV in
+        int8 with fp32 scales when ``cfg.kv_cache_dtype == "int8"``."""
         return [self._init_block_cache(blk.kind, B, max_seq)
                 for blk in self.layers]
 
@@ -241,16 +299,18 @@ class Transformer(nn.Module):
     def decode_step(self, tokens, cache, index: int):
         """One decode step: tokens (B,) at position ``index``.
 
-        Returns (logits (B, V) fp32, cache); the cache is updated in place.
+        Returns (logits (B, V) fp32, cache); KV is written in place and
+        each recurrent layer's entry of the list is replaced by its new
+        state.
         """
         cfg = self.cfg
         B = tokens.shape[0]
         x = self.embed[tokens][:, None, :]
         positions = torch.full((B, 1), index, dtype=torch.int32,
                                device=x.device)
-        for blk, c in zip(self.layers, cache):
-            x, _ = blk.decode(x, c, cfg, index, positions)
-        x = apply_norm(x, self.final_norm, cfg.norm_kind, cfg.norm_eps)
+        for i, blk in enumerate(self.layers):
+            x, cache[i] = blk.decode(x, cache[i], cfg, index, positions)
+        x = _norm(x, self.final_norm, cfg)
         return (x[:, 0] @ self.unembed_weight()).float(), cache
 
 
@@ -268,14 +328,19 @@ def _fan_in(name, p, cfg) -> int:
 
 def init_params(cfg, seed: int = 0, device=None) -> Transformer:
     """A Transformer with random weights drawn on ``device`` from ``seed``:
-    matrices and expert stacks normal / sqrt(fan_in) (``_fan_in``), norm
-    scales 1, biases 0, as the JAX init; not its bits."""
+    matrices and expert stacks normal / sqrt(fan_in) (``_fan_in``), the
+    Mamba ``conv`` normal * 0.1, norm scales 1, biases 0 and the Mamba
+    fp32 leaves as the module sets them, as the JAX init; not its bits."""
     model = Transformer(cfg, device=device)
     g = torch.Generator(device=model.device)
     g.manual_seed(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if p.dim() >= 2:
+            if name.endswith("cell.conv"):
+                w = torch.randn(p.shape, generator=g, device=p.device,
+                                dtype=torch.float32)
+                p.copy_((w * 0.1).to(p.dtype))
+            elif p.dim() >= 2 and not name.endswith("cell.a_log"):
                 p.copy_(_dense_init(p.shape, p.dtype, g, p.device,
                                     _fan_in(name, p, cfg)))
     return model

@@ -19,10 +19,13 @@ one per decode step) and scatters per layer.  No index write happens
 between those lookups, so the pages written are the same.
 
 The paged decoder serves ``dense`` and ``swa`` stacks, as the JAX
-engine's does; MoE and MLA stacks decode through ``serve/steps.py``.  On
+engine's does; MoE, MLA, recurrent and hybrid stacks decode through
+``serve/steps.py``, where an encoder-only stack encodes.  On
 ``swa`` layers the paged decode attends over every position with no
 window, as the JAX engine does (its prefill is windowed); the contiguous
 ``decode_step`` applies the window (ROADMAP.md §3 records the gap).
+The decode applies plain RoPE, as the JAX engine does; for an M-RoPE
+config (qwen2-vl-2b) over text positions that equals M-RoPE bit for bit.
 
 Pages stay fp32 whatever the model dtype, as in the JAX engine.  The
 decoder times its page-index work per decode step (``index_s``), the

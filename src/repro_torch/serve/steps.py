@@ -1,9 +1,9 @@
-"""Serving steps (prefill and decode) over a port ``Transformer``.
+"""Serving steps (prefill, decode, encode) over a port ``Transformer``.
 
-The port of ``repro/serve/steps.py``'s token paths (the encoder-only step
-is not ported: ROADMAP.md, queue 1, item 9g).  These are the entry
-points of every ported arch; the MoE and MLA stacks decode only here (the
-paged engine serves dense and swa stacks, as the reference's).
+The port of ``repro/serve/steps.py``.  These are the entry points of
+every arch; the MoE, MLA, recurrent (mlstm/slstm) and hybrid stacks
+decode only here (the paged engine serves dense and swa stacks, as the
+reference's), and encoder-only archs run ``make_encode_step``.
 """
 from __future__ import annotations
 
@@ -11,12 +11,24 @@ import torch
 
 
 def make_prefill_step(cfg, cache_len: int):
-    """(model, {"tokens"}) -> (last_logits (B,1,V), cache)."""
+    """(model, {"tokens"} or, encoder-only, {"embeds"}) -> (last_logits
+    (B,1,V), cache)."""
     def prefill(model, batch):
-        logits, _aux, cache = model(batch["tokens"], build_cache_len=cache_len,
-                                    last_logit_only=True)
+        kw = ({"embeds": batch["embeds"]} if cfg.encoder_only
+              else {"tokens": batch["tokens"]})
+        logits, _aux, cache = model(build_cache_len=cache_len,
+                                    last_logit_only=True, **kw)
         return logits, cache
     return prefill
+
+
+def make_encode_step(cfg):
+    """Encoder-only archs: (model, {"embeds"}) -> logits (B, S, V), the
+    full-sequence forward (no cache, no decode)."""
+    def encode(model, batch):
+        logits, _aux = model(embeds=batch["embeds"])
+        return logits
+    return encode
 
 
 def make_serve_step(cfg):

@@ -3,8 +3,10 @@
 The paged engine serves dense and ``swa`` stacks, as the JAX engine does:
 on a reduced ``swa`` stack its greedy tokens must equal the JAX engine's
 (both decode over every page with no window, so past the window they
-differ from the windowed contiguous decode: the gap is measured).  MoE and
-MLA stacks are refused with the reference's reasons.  The JAX engine's
+differ from the windowed contiguous decode: the gap is measured), and on
+reduced qwen2-vl-2b (dense, M-RoPE over text positions) too.  MoE, MLA,
+recurrent, hybrid and encoder stacks are refused with the reference's
+reasons.  The JAX engine's
 page index compiles each new query shape, which takes most of this file's
 time.
 """
@@ -66,6 +68,30 @@ def test_swa_paged_engine_matches_jax_engine():
     assert gap > 1e-2, "past the window the two decodes must differ"
 
 
+def test_mrope_paged_engine_matches_jax_engine_and_contiguous_decode():
+    """qwen2-vl-2b reduced, 2 requests of 12-token prompts, 6 new tokens:
+    the port's engine (plain RoPE in its decode, M-RoPE with three equal
+    rows in its prefill, as the JAX engine) gives the JAX engine's tokens
+    and the contiguous decode's (M-RoPE throughout)."""
+    jcfg, tcfg, params, model = _pair("qwen2-vl-2b")
+    assert tcfg.mrope_sections is not None
+    prompt = np.random.default_rng(8).integers(1, 512, 12).tolist()
+    n_new = 6
+    jeng = JaxEngine(jcfg, params, max_batch=2, n_pages=64, page_size=8)
+    want = [r.out for r in jeng.run([JaxRequest(i, prompt, max_new_tokens=n_new)
+                                     for i in range(2)])]
+    eng = Engine(tcfg, model, max_batch=2, n_pages=64, page_size=8)
+    got = eng.run([Request(i, prompt, max_new_tokens=n_new) for i in range(2)])
+    assert [r.out for r in got] == want
+    cache = model.init_cache(1, 32)
+    for i, t in enumerate(prompt + want[0][:-1]):
+        logits, cache = model.decode_step(torch.tensor([t]), cache, i)
+        if i >= len(prompt) - 1:
+            assert int(logits.argmax()) == want[0][i - len(prompt) + 1]
+    torch.testing.assert_close(eng.decoder.last_logits[0], logits[0],
+                               atol=1e-4, rtol=1e-4)
+
+
 def test_paged_decoder_refuses_what_the_reference_refuses():
     cfg, _, _, model = _pair("deepseek-moe-16b")
     with pytest.raises(ValueError, match="attention backbones"):
@@ -88,8 +114,19 @@ def test_serve_cli_serves_gemma_on_cpu(capsys):
     assert out[1].startswith("free pages after completion: 1023")
 
 
-def test_serve_cli_refuses_moe_with_the_reference_message():
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b", "xlstm-1.3b",
+                                  "hymba-1.5b", "hubert-xlarge"])
+def test_serve_cli_refuses_moe_with_the_reference_message(arch):
+    """MoE, recurrent, hybrid and encoder stacks: the reference's exit."""
     with pytest.raises(SystemExit, match="paged-KV engine serves attention "
                                          "backbones; pick a dense/swa arch"):
-        serve_main(["--arch", "deepseek-moe-16b", "--reduced", "--device",
-                    "cpu"])
+        serve_main(["--arch", arch, "--reduced", "--device", "cpu"])
+
+
+def test_serve_cli_serves_qwen2_vl_on_cpu(capsys):
+    serve_main(["--arch", "qwen2-vl-2b", "--reduced", "--device", "cpu",
+                "--requests", "2", "--prompt-len", "8", "--max-new", "3",
+                "--max-batch", "2"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("served 2 requests / 6 tokens")
+    assert out[1].startswith("free pages after completion: 1023")

@@ -416,7 +416,8 @@ def test_port_imports_neither_jax_nor_repro():
     assert len(files) > 15
     scanned = {p.relative_to(ROOT).as_posix() for p in files}
     assert {"src/repro_torch/models/moe.py",
-            "src/repro_torch/models/mla.py"} <= scanned
+            "src/repro_torch/models/mla.py", "src/repro_torch/models/ssm.py",
+            "src/repro_torch/models/blockwise_attn.py"} <= scanned
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

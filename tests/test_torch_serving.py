@@ -26,8 +26,7 @@ from repro.serve.engine import Request as JaxRequest
 from repro_torch.launch.serve import main as serve_main
 from repro_torch.models import registry
 from repro_torch.models.convert import params_from_reference
-from repro_torch.models.layers import BLOCKWISE_THRESHOLD, attention
-from repro_torch.models.transformer import Transformer, init_params
+from repro_torch.models.transformer import init_params
 from repro_torch.serve import kv_cache as tkv
 from repro_torch.serve.engine import Engine, Request
 from repro_torch.serve.steps import make_prefill_step, make_serve_step
@@ -133,20 +132,8 @@ def test_init_params_is_seeded():
 
 
 def test_unported_parts_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        registry.get_config("xlstm-1.3b")
     with pytest.raises(KeyError):
         registry.get_config("no-such-arch")
-    mlstm = dataclasses.replace(_reduced(registry), segments=(("mlstm", 2),))
-    with pytest.raises(NotImplementedError, match="mlstm"):
-        Transformer(mlstm, device="cpu")
-    cfg = _reduced(registry)
-    model = init_params(cfg, device="cpu")
-    S = int((BLOCKWISE_THRESHOLD / cfg.n_heads) ** 0.5) + 1   # B*S*S*H above
-    x = torch.zeros((1, S, cfg.d_model))
-    with pytest.raises(NotImplementedError, match="blockwise"):
-        attention(x, model.layers[0].attn, cfg,
-                  positions=torch.arange(S)[None])
 
 
 # ---------------------------------------------------------------- kv cache
