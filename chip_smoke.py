@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (the NB-tree device tier, durable and
-multi-tenant ingest over it, the paged-KV serving bridge and every arch
-of the model code) on one NVIDIA card.
+multi-tenant ingest over it, the paged-KV serving bridge, every arch of
+the model code and training) on one NVIDIA card.
 
 Run from the repository root (needs one CUDA card, the CUDA toolkit and no
 network)::
@@ -77,6 +77,26 @@ network)::
    too; the int8 KV cache (qwen2-vl-2b, depth 4): stored values within
    scale / 2 of the K/V they store, and the reference's accuracy bounds
    against the model-dtype cache over 16 steps.
+10. (Runs after phase 9.)  Training on the card; no kernel of phase 1 is
+   on this path (training reaches no Pallas kernel's counterpart), and
+   10a's launch counts must all be 0.  10a: gemma-2b at full width and
+   depth (2,506,172,416 parameters, bf16, remat "layer") through the
+   train CLI (``repro_torch.launch.train.main``), 4 steps of 4 x 1,024
+   tokens from the data pipeline; every loss and grad norm must be
+   finite; prints step time p50, tokens/s, the share of the card's dense
+   bf16 peak (``PEAK_BF16_FLOPS``) that 6 * params * tokens a step makes,
+   and peak device memory.  10b: the same model on one batch repeated 6
+   times at a constant rate: the last loss must be below the first; the
+   last 4 steps are profiled (the device's busy share), and one more
+   step is split into its gradient and its AdamW update.  10c: two steps
+   of qwen3-8b and deepseek-moe-16b reduced in fp32 (TF32 off) on the
+   card and on the CPU from the same weights: params, ``m`` and ``v``
+   within max(2e-5, twice the CPU fp32 run's distance from a float64
+   run).  10d: a reduced qwen3-8b trains 4 steps saving at step 2; a new
+   ``Trainer`` restores step 2 and runs 2 more: params, ``m`` and ``v``
+   must equal the uninterrupted run's bit for bit.  The compressed
+   cross-pod all-reduce needs two ranks, NCCL one card a rank: the CPU
+   tests run it over ``gloo``.
 6. Durable open-loop ingest with a crash and a restart: ``torch-nbtree``
    at phase 2's shape under ``repro_torch.ingest.IngestFrontend`` with a
    WAL and LSN-keyed snapshots on local disk; a preload of 2^22 keys over
@@ -115,7 +135,7 @@ network)::
    (>= 2^18 pairs) out without a capped range scan.
 
 Kernel launch counters are zeroed just before each path (2-3, 4, the
-measured runs of 8a and 8b, 9a, 6, 7) and read just after; every kernel
+measured runs of 8a and 8b, 9a, 10a, 6, 7) and read just after; every kernel
 must have launched on its own path (the four NB-tree kernels of the write
 side and the point reads on phase 6's too, and those and
 ``range_scan_rows`` on phase 7's; the root merge, the search, the probe
@@ -146,6 +166,9 @@ import torch
 PEAK_BYTES_S = 3.35e12       # H100 SXM HBM3, NVIDIA data sheet
 PEAK_OPS_S = 67e12           # H100 SXM non-tensor fp32 rate (attention's fp32
                              # ops; it stands in for int ops too)
+#: dense bf16 tensor-core peak by card (NVIDIA data sheets, no sparsity);
+#: phase 10 divides its model FLOPs by the one its card's name picks
+PEAK_BF16_FLOPS = {"H100 SXM": 989e12, "H100 PCIe": 756e12}
 KEY_MAX = 0xFFFFFFFF
 RUN_CAP, NW, H = 21504, 6784, 3      # f=4, sigma=4096 node-row shape
 #: the path whose launches a kernel's row reports (the NB-tree path if absent)
@@ -2365,6 +2388,265 @@ def phase_variants(dev, args) -> dict:
     return launches
 
 
+# ----------------------------------------------------------------- phase 10
+#: 10a's run through the train CLI: gemma-2b at full width and depth (its
+#: config: bf16, remat "layer"), 4 rows of 1,024 tokens a step
+TRAIN = dict(arch="gemma-2b", batch=4, seq=1024, steps=4, params=2_506_172_416)
+#: 10b: steps on one repeated batch at a constant rate, the last 4 profiled
+LOSS_STEPS, LOSS_LR = 6, 3e-4
+
+
+def bf16_peak(name: str):
+    """(label, FLOP/s) of the card's dense bf16 peak by its name."""
+    label = "H100 PCIe" if "PCIe" in name else "H100 SXM"
+    return label, PEAK_BF16_FLOPS[label]
+
+
+def train_pair(arch: str, dev, seed: int):
+    """(config, CPU model, card model, CPU float64 model) of ``arch``
+    reduced in fp32 with the same weights, drawn on the CPU from
+    ``seed``."""
+    from repro_torch.models import registry
+    from repro_torch.models.transformer import Transformer, init_params
+
+    cfg = dataclasses.replace(registry.get_config(arch).reduced(),
+                              dtype="float32", remat="none")
+    host = init_params(cfg, seed=seed, device="cpu")
+    card = Transformer(cfg, device=dev)
+    card.load_state_dict(host.state_dict())
+    exact = Transformer(dataclasses.replace(cfg, dtype="float64"),
+                        device="cpu")
+    exact.load_state_dict({k: v.double() for k, v in
+                           host.state_dict().items()})
+    return cfg, host, card, exact
+
+
+def state_diffs(a, b) -> dict:
+    """Max abs difference of params, ``m`` and ``v`` between two trained
+    (model, opt_state) pairs, compared in float64 on the CPU."""
+    (ma, oa), (mb, ob) = a, b
+    pb = dict(mb.named_parameters())
+    out = {"params": 0.0, "m": 0.0, "v": 0.0}
+    for name, p in ma.named_parameters():
+        for part, (x, y) in {"params": (p, pb[name]),
+                             "m": (oa["m"][name], ob["m"][name]),
+                             "v": (oa["v"][name], ob["v"][name])}.items():
+            d = x.detach().cpu().double() - y.detach().cpu().double()
+            out[part] = max(out[part], float(d.abs().max()))
+    return out
+
+
+def train_card_vs_cpu(dev, args) -> None:
+    """10c: two train steps of qwen3-8b and deepseek-moe-16b reduced, fp32,
+    TF32 off, on the card and on the CPU from the same weights and batch,
+    and the same on the CPU in float64.  Params, ``m`` and ``v`` of the
+    card must lie within ``max(2e-5, 2 * e)`` of the CPU's, ``e`` the
+    CPU fp32 run's distance from the float64 run: the reference's own
+    bound between two runs of a step (``tests/test_distributed.py``),
+    unless fp32 rounding alone, which AdamW's normalisation amplifies on
+    weights whose gradient is near ``eps``, is wider."""
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_train_step
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    for arch in ("qwen3-8b", "deepseek-moe-16b"):
+        cfg, host, card, exact = train_pair(arch, dev, args.seed)
+        toks = torch.from_numpy(np.random.default_rng(args.seed).integers(
+            1, cfg.vocab, (8, 64)).astype(np.int64))
+        runs = []
+        for model in (host, card, exact):
+            step = make_train_step(model.cfg, adamw.AdamWConfig(lr=1e-3))
+            opt = adamw.init(dict(model.named_parameters()))
+            ms = [step(model, opt, {"tokens": toks.to(model.device)})
+                  for _ in range(2)]
+            runs.append((model, opt, ms))
+        (h, ho, hm), (c, co, cm), (x, xo, _) = runs
+        errs = state_diffs((c, co), (h, ho))
+        rounding = state_diffs((h, ho), (x, xo))
+        tols = {k: max(2e-5, 2 * v) for k, v in rounding.items()}
+        dl = max(abs(float(a["loss"]) - float(b["loss"]))
+                 for a, b in zip(hm, cm))
+        aux = float(cm[-1]["aux_loss"])
+        log(f"  {arch} reduced, fp32, 2 steps of 8 x 64 tokens: card vs CPU "
+            "max abs diff " + ", ".join(
+                f"{k} {errs[k]:.3e} (CPU fp32 vs float64 {rounding[k]:.3e}, "
+                f"bound {tols[k]:.3e})" for k in errs)
+            + f"; loss diff {dl:.3e}; aux {aux:.6f}; card grad norms "
+            f"{[round(float(m['grad_norm']), 6) for m in cm]}")
+        if any(errs[k] > tols[k] for k in errs) or dl > 1e-4:
+            raise AssertionError(f"10c {arch}: card differs from the CPU")
+        if cfg.n_experts and not aux > 0:
+            raise AssertionError("10c: the MoE aux term did not run")
+
+
+def train_restart(dev, args, cfg=None) -> None:
+    """10d: a reduced qwen3-8b (its registry config: bf16, remat "layer")
+    trains 4 steps saving only at step 2 into a temporary checkpoint
+    directory; a new Trainer there restores step 2 and runs the
+    pipeline's batches 3 and 4: params, m, v and count must equal the
+    uninterrupted run's bit for bit."""
+    from repro_torch.data.pipeline import (PackedBatches, StreamingIngest,
+                                           synthetic_documents)
+    from repro_torch.models import registry
+    from repro_torch.optim import adamw, schedules
+    from repro_torch.train.trainer import Trainer
+
+    cfg = cfg or registry.get_config("qwen3-8b").reduced()
+    opt_cfg = adamw.AdamWConfig(lr=schedules.cosine_with_warmup(3e-3, 2, 8))
+
+    def batches():
+        ing = StreamingIngest()
+        for d in synthetic_documents(64, 72, cfg.vocab, seed=args.seed):
+            ing.ingest(d)
+        return PackedBatches(ing, batch=4, seq_len=64, seed=args.seed)
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        a = Trainer(cfg, device=dev, opt_cfg=opt_cfg, ckpt_dir=ckpt,
+                    seed=args.seed)
+        stream = batches()
+        hist = a.run(stream, 2, ckpt_every=2, log_every=0)
+        hist += a.run(stream, 2, log_every=0)
+        b = Trainer(cfg, device=dev, opt_cfg=opt_cfg, ckpt_dir=ckpt,
+                    seed=args.seed)
+        assert b.step == 2, b.step
+        resumed = batches()
+        next(resumed), next(resumed)
+        hb = b.run(resumed, 2, log_every=0)
+    same = all(torch.equal(b.params[n], p) for n, p in a.params.items())
+    same &= all(torch.equal(b.opt_state[k][n], a.opt_state[k][n])
+                for k in ("m", "v") for n in a.params)
+    same &= int(b.opt_state["count"]) == int(a.opt_state["count"]) == 4
+    log(f"  {cfg.name} reduced ({cfg.dtype}, remat {cfg.remat}): losses "
+        f"{[round(h['loss'], 6) for h in hist]} uninterrupted, "
+        f"{[round(h['loss'], 6) for h in hb]} after the restore at step 2; "
+        f"params, m, v and count bit for bit equal: {same}")
+    if not same or [h["loss"] for h in hb] != [h["loss"] for h in hist[2:]]:
+        raise AssertionError("10d: the restarted run differs")
+
+
+def phase_train(dev, args, cfg=None) -> dict:
+    """Phase 10 (see the module docstring); returns the kernel launches of
+    10a's run.  ``cfg`` replaces gemma-2b's config (and 10a runs the CLI
+    with ``--reduced``) only to rehearse the phase on the CPU."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.pipeline import (PackedBatches, StreamingIngest,
+                                           synthetic_documents)
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.transformer import param_count
+    from repro_torch.optim import adamw, schedules
+    from repro_torch.train.train_step import _grads_microbatched, make_loss_fn
+    from repro_torch.train.trainer import Trainer
+
+    full = cfg is None
+    t0 = time.perf_counter()
+    times = {}
+    tokens = TRAIN["batch"] * TRAIN["seq"]
+    label, peak_flops = bf16_peak(torch.cuda.get_device_name(0)
+                                  if dev.type == "cuda" else "")
+    log(f"  10a: {TRAIN['arch']} at full width and depth through "
+        "repro_torch.launch.train.main")
+    argv = ["--arch", TRAIN["arch"], "--steps", str(TRAIN["steps"]),
+            "--batch", str(TRAIN["batch"]), "--seq", str(TRAIN["seq"]),
+            "--ckpt-every", "0"]
+    if not full:
+        argv += ["--reduced", "--device", str(dev)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    hist = train_cli.main(argv)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in hist]
+    norms = [h["grad_norm"] for h in hist]
+    secs = [h["sec"] for h in hist]
+    if len(hist) != TRAIN["steps"] or not np.isfinite(losses + norms).all():
+        raise AssertionError(f"10a: losses {losses}, grad norms {norms}")
+    p50 = pct(secs[1:], 50)
+    log(f"  10a: losses {[round(x, 6) for x in losses]}, grad norms "
+        f"{[round(x, 6) for x in norms]}, all finite; step s "
+        f"{[round(x, 6) for x in secs]} (the first builds the cuBLAS "
+        f"plans); steps 2-{len(secs)}: p50 {p50:.6f} s, "
+        f"{tokens / p50:.1f} tokens/s, 6 * {TRAIN['params']} * {tokens} = "
+        f"{6 * TRAIN['params'] * tokens:.4e} FLOP a step = "
+        f"{6 * TRAIN['params'] * tokens / p50 / peak_flops:.4f} of the "
+        f"{label} bf16 dense peak ({peak_flops / 1e12:.0f} TFLOP/s); peak "
+        f"device memory {peak} bytes ({held} held before)")
+    if any(launches.values()):
+        raise AssertionError(f"10a launched a kernel: {launches}")
+    log("  10a launched none of the six kernels (training reaches no Pallas "
+        "kernel's counterpart): " + json.dumps(launches))
+    times["10a"] = time.perf_counter() - t0
+
+    log(f"  10b: {TRAIN['arch']} at full width, one batch repeated "
+        f"{LOSS_STEPS} times at a constant rate {LOSS_LR}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tcfg = cfg or arch_config(TRAIN["arch"])
+    tr = Trainer(tcfg, device=dev, seed=args.seed,
+                 opt_cfg=adamw.AdamWConfig(lr=schedules.constant(LOSS_LR)))
+    if full and param_count(tr.model) != TRAIN["params"]:
+        raise AssertionError(f"10b: {param_count(tr.model)} parameters")
+    ing = StreamingIngest()
+    for d in synthetic_documents(512, TRAIN["seq"] + 8, tcfg.vocab):
+        ing.ingest(d)
+    batch = next(PackedBatches(ing, TRAIN["batch"], TRAIN["seq"]))
+    hist = tr.run([batch] * 2, 2, log_every=0)
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    torch.cuda.synchronize()
+    prof.start()
+    t1 = time.perf_counter()
+    hist += tr.run([batch] * (LOSS_STEPS - 2), LOSS_STEPS - 2, log_every=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    prof.stop()
+    losses = [h["loss"] for h in hist]
+    secs = [h["sec"] for h in hist]
+    share, _ = busy_share(prof, wall)
+    log(f"  10b: losses {[round(x, 6) for x in losses]}; step s "
+        f"{[round(x, 6) for x in secs]}; steps 3-{LOSS_STEPS} profiled "
+        f"({wall:.6f} s): {busy_text(prof, wall)}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"10b: the loss did not fall: {losses}")
+    # one more step split in two, each half synchronised: the gradient
+    # (forward, recompute and backward) and the AdamW update
+    dev_batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    grads, _, _ = _grads_microbatched(make_loss_fn(tcfg), tr.model,
+                                      dev_batch, 1)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    adamw.update(grads, tr.opt_state, tr.params, tr.opt_cfg)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    log(f"  10b: a step split: gradient {(t2 - t1) * 1e3:.3f} ms, AdamW "
+        f"update {(t3 - t2) * 1e3:.3f} ms")
+    del tr, prof, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    times["10b"] = time.perf_counter() - t0 - sum(times.values())
+
+    log("  10c: card vs CPU, reduced, fp32")
+    train_card_vs_cpu(dev, args)
+    times["10c"] = time.perf_counter() - t0 - sum(times.values())
+    log("  10d: checkpoint restart")
+    train_restart(dev, args, cfg)
+    times["10d"] = time.perf_counter() - t0 - sum(times.values())
+    log("  the compressed all-reduce (int8 over a 'pod' axis) is not run "
+        "here: this script runs on one card and NCCL takes one rank per "
+        "card; the CPU tests run it over gloo (tests/test_torch_train.py)")
+    log("  phase 10 parts took " + ", ".join(f"{k} {v:.1f} s"
+                                             for k, v in times.items())
+        + (f"; busy share of 10b's profiled steps {share:.4f}"
+           if share is not None else ""))
+    return launches
+
+
 # ------------------------------------------------------------------ phase 6
 def ingest_oracle(preload, acked):
     """Live table after ``preload`` and the acked commits in LSN order:
@@ -2955,6 +3237,12 @@ def main() -> int:
     log(f"launches on the variants path (9a): "
         f"{json.dumps(paths['variants'])}; phase 9 took "
         f"{time.perf_counter() - t9:.1f} s")
+    log("phase 10: training on the card (gemma-2b at full width and depth "
+        "through the train CLI; the loss on a repeated batch; card vs CPU; "
+        "a checkpoint restart)")
+    t10 = time.perf_counter()
+    paths["train"] = phase_train(dev, args)
+    log(f"phase 10 took {time.perf_counter() - t10:.1f} s")
     log("phase 6: durable open-loop ingest over torch-nbtree, crash and "
         "restart")
     t6 = time.perf_counter()

@@ -11,6 +11,12 @@ recurrent ``cell`` of mlstm/slstm, and the hybrid kinds' Mamba ``cell``
 ``attn_norm`` and ``ssm_norm``.  Shapes and dtypes must match leaf by
 leaf.  The port's forward then computes what the JAX forward computes,
 which is how the tests compare the two.
+
+``named_from_reference(tree_np, cfg)`` is that name mapping alone, for
+any tree shaped like the JAX params (gradients, AdamW's ``m`` and ``v``):
+``{port parameter name: array}``.  ``opt_state_from_reference(opt_np,
+cfg)`` carries a JAX ``optim/adamw.py`` state across as the port's
+``{"m", "v", "count"}``.
 """
 from __future__ import annotations
 
@@ -38,16 +44,36 @@ def _tensor(arr) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def params_from_reference(params_np, cfg, device="cpu") -> Transformer:
-    """A Transformer on ``device`` with the weights of ``params_np``."""
-    named = _flatten({k: v for k, v in params_np.items()
+def named_from_reference(tree_np, cfg) -> dict:
+    """``{port parameter name: array}`` of a tree shaped like the JAX
+    params: each ``seg{i}`` leaf's leading (layer) axis unstacked into the
+    names of that segment's layers."""
+    named = _flatten({k: v for k, v in tree_np.items()
                       if not k.startswith("seg")})
     layer = 0
     for i, (_kind, count) in enumerate(cfg.segments):
-        seg = _flatten(params_np[f"seg{i}"])
+        seg = _flatten(tree_np[f"seg{i}"])
         for j in range(count):
             named.update({f"layers.{layer}.{k}": v[j] for k, v in seg.items()})
             layer += 1
+    return named
+
+
+def opt_state_from_reference(opt_np, cfg, device="cpu") -> dict:
+    """The port's AdamW state (``optim/adamw.py``) on ``device`` from a JAX
+    one as numpy arrays: ``m`` and ``v`` by port name, fp32, and the int32
+    step ``count``."""
+    def by_name(tree):
+        return {n: _tensor(a).to(device)
+                for n, a in named_from_reference(tree, cfg).items()}
+    return {"m": by_name(opt_np["m"]), "v": by_name(opt_np["v"]),
+            "count": torch.tensor(int(np.asarray(opt_np["count"])),
+                                  dtype=torch.int32, device=device)}
+
+
+def params_from_reference(params_np, cfg, device="cpu") -> Transformer:
+    """A Transformer on ``device`` with the weights of ``params_np``."""
+    named = named_from_reference(params_np, cfg)
     model = Transformer(cfg, device=device)
     with torch.no_grad():
         for name, p in model.named_parameters():

@@ -5,6 +5,10 @@ over time of the reference's step (JAX scans it), in the same dtypes:
 state math in fp32, projections, the conv and ``dt`` in the model dtype.
 Each block is ``(x, p, cfg, state=None) -> (out, state)``; a prefill runs
 it over the whole sequence, a decode step over one token with the state.
+Floors are ``torch.maximum`` against 1, as the reference's
+``jnp.maximum``: at a tie (the sLSTM normaliser ``n`` is exactly 1 on a
+step whose input gate leads) both split the gradient in half, where
+``torch.clamp`` would pass all of it.
 
 State layouts (decode carries these instead of a KV cache):
   mLSTM : C (B, H, Dk, Dv), n (B, H, Dk), m (B, H), all fp32
@@ -57,7 +61,8 @@ def _mlstm_step(state, q, k, v, i_pre, f_pre, dk):
     n = f_g[..., None] * n + i_g[..., None] * kf
     qf = q.float()
     num = torch.einsum("bhk,bhkv->bhv", qf, C)
-    den = torch.clamp(torch.abs(torch.einsum("bhk,bhk->bh", qf, n)), min=1.0)
+    den = torch.maximum(torch.abs(torch.einsum("bhk,bhk->bh", qf, n)),
+                        qf.new_ones(()))
     return (C, n, m_new), num / den[..., None]
 
 
@@ -123,7 +128,8 @@ def slstm_block(x, p, cfg, state=None):
         f_g = torch.exp(logf + m - m_new)
         c = f_g * c + i_g * zt
         n = f_g * n + i_g
-        h = torch.sigmoid(o_pre[:, t].float()) * c / torch.clamp(n, min=1.0)
+        h = torch.sigmoid(o_pre[:, t].float()) * c / torch.maximum(
+            n, n.new_ones(()))
         m = m_new
         hs.append(h)
     out = torch.stack(hs, 1).to(x.dtype)

@@ -8,6 +8,15 @@ runs a Python loop over modules).  Entry points:
   Transformer.forward(tokens | embeds, ...)     -> logits (B, S, V), aux [, cache]
   Transformer.init_cache(B, max_seq)            -> contiguous decode cache
   Transformer.decode_step(tokens, cache, index) -> logits (B, V) fp32, cache
+  cross_entropy(logits, labels, mask=None)      -> mean token CE (fp32)
+  param_count(model)                            -> number of weights
+
+Parameters are made with ``requires_grad=False``, so serving builds no
+autograd graph; training turns gradients on (``model.requires_grad_(True)``,
+``train/train_step.py``) and differentiates ``forward``, which under
+``cfg.remat == "layer"`` recomputes each block in the backward pass, as
+the reference's ``jax.checkpoint`` of the block body.  ``decode_step`` and
+the serving steps run under ``torch.no_grad()``.
 
 ``forward`` returns the reference's aux term with the logits: the sum of
 every ``moe``/``moe_swa`` layer's load-balancing loss (fp32 scalar, zero
@@ -25,7 +34,9 @@ beside a Mamba SSM on the same input).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import mla as mla_lib
@@ -218,7 +229,6 @@ class Transformer(nn.Module):
     def unembed_weight(self):
         return self.embed.T if self.cfg.tie_embeddings else self.unembed
 
-    @torch.no_grad()
     def forward(self, tokens=None, embeds=None, mrope_positions=None,
                 build_cache_len=None, last_logit_only=False):
         """Token ids (B, S), or precomputed frame/patch ``embeds`` (B, S, d)
@@ -227,19 +237,29 @@ class Transformer(nn.Module):
         decode cache filled up to position S-1.  ``mrope_positions``
         (3, B, S) feed M-RoPE.  ``aux`` is the fp32 sum of the MoE layers'
         balance terms.  ``last_logit_only`` unembeds the last position
-        only."""
+        only.  Under ``cfg.remat == "layer"``, with grad enabled and no
+        cache being built, each block is checkpointed: its activations are
+        recomputed in the backward pass instead of kept."""
         cfg = self.cfg
         if embeds is None:
-            x = self.embed[tokens]
+            # embed[tokens]'s values; its backward is the embedding-gradient
+            # kernel, not the indexing one
+            x = F.embedding(tokens, self.embed)
         else:
             x = embeds.to(self.embed.dtype)
         B, S = x.shape[:2]
         positions = torch.arange(S, device=x.device).expand(B, S)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         caches = []
+        remat = (cfg.remat == "layer" and torch.is_grad_enabled()
+                 and build_cache_len is None)
         for blk in self.layers:
-            x, aux, c = blk(x, cfg, positions, build_cache_len,
-                            mrope_positions)
+            if remat:
+                x, aux, c = checkpoint(blk, x, cfg, positions, None,
+                                       mrope_positions, use_reentrant=False)
+            else:
+                x, aux, c = blk(x, cfg, positions, build_cache_len,
+                                mrope_positions)
             aux_total = aux_total + aux
             caches.append(c)
         x = _norm(x, self.final_norm, cfg)
@@ -312,6 +332,26 @@ class Transformer(nn.Module):
             x, cache[i] = blk.decode(x, cache[i], cfg, index, positions)
         x = _norm(x, self.final_norm, cfg)
         return (x[:, 0] @ self.unembed_weight()).float(), cache
+
+
+def param_count(model) -> int:
+    """The number of weights of ``model`` (every parameter's elements)."""
+    return sum(p.numel() for p in model.parameters())
+
+
+def cross_entropy(logits, labels, mask=None):
+    """Mean token-level cross entropy of logits (..., V) against int
+    ``labels`` (...): logsumexp minus the gold logit, in fp32 whatever the
+    logits' dtype; with ``mask`` the mean over its nonzero weights (at
+    least 1), as the reference."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
 def _fan_in(name, p, cfg) -> int:

@@ -3,7 +3,9 @@
 The port of ``repro/serve/steps.py``.  These are the entry points of
 every arch; the MoE, MLA, recurrent (mlstm/slstm) and hybrid stacks
 decode only here (the paged engine serves dense and swa stacks, as the
-reference's), and encoder-only archs run ``make_encode_step``.
+reference's), and encoder-only archs run ``make_encode_step``.  Each step
+runs under ``torch.no_grad()``: serving never builds an autograd graph,
+even over a model whose parameters require grad.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import torch
 def make_prefill_step(cfg, cache_len: int):
     """(model, {"tokens"} or, encoder-only, {"embeds"}) -> (last_logits
     (B,1,V), cache)."""
+    @torch.no_grad()
     def prefill(model, batch):
         kw = ({"embeds": batch["embeds"]} if cfg.encoder_only
               else {"tokens": batch["tokens"]})
@@ -25,6 +28,7 @@ def make_prefill_step(cfg, cache_len: int):
 def make_encode_step(cfg):
     """Encoder-only archs: (model, {"embeds"}) -> logits (B, S, V), the
     full-sequence forward (no cache, no decode)."""
+    @torch.no_grad()
     def encode(model, batch):
         logits, _aux = model(embeds=batch["embeds"])
         return logits

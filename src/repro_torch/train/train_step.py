@@ -1,0 +1,163 @@
+"""Training step factory: loss, grad, (optionally compressed) reduce, AdamW.
+
+The port of ``repro/train/train_step.py``.  ``make_train_step(cfg, ...)``
+returns ``step(model, opt_state, batch) -> metrics``: it differentiates
+every parameter of the port's ``Transformer`` (turning their
+``requires_grad`` on), reduces the gradients over the mesh, and updates
+the parameters and ``opt_state`` in place with ``optim/adamw.py``.
+``metrics`` holds ``loss``, ``aux_loss``, ``grad_norm`` and ``lr`` as
+tensors on the device.
+
+Microbatching (gradient accumulation) runs loss and grad over row slices
+``[i * mb, (i + 1) * mb)`` of the batch in turn and sums the gradients in
+fp32 buffers (autograd's ``.grad`` would sum them in the parameter's
+dtype), so activation memory scales with the microbatch; loss, aux and
+gradients are averaged over the microbatches.
+
+With a mesh (``launch/mesh.py``) every rank is handed the same global
+batch and takes its own rows: rank (pod p, data d) of an (n_pod, n_data)
+mesh the rows of slice ``p * n_data + d`` of ``n_pod * n_data``, the
+reference's ``P("pod", "data")`` layout.  Parameters are replicated.
+Gradients are averaged exactly in fp32 over ``"data"``, then over
+``"pod"``, where ``grad_compression`` swaps the exact mean for
+error-feedback int8 (``optim/compression.py``; the step expects
+``opt_state["error"]`` from ``compression.init_error``).  Loss and aux
+are averaged over every rank.
+"""
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+from ..models.transformer import cross_entropy
+from ..optim import adamw, compression
+
+AUX_LOSS_WEIGHT = 0.01
+MESH_AXES = ("pod", "data", "model")
+
+
+def make_loss_fn(cfg):
+    """(model, batch) -> (loss + 0.01 * aux, (loss, aux)).  Decoders:
+    next-token CE of ``logits[:, :-1]`` against ``tokens[:, 1:]``;
+    encoder-only archs: CE of the logits of ``embeds`` against
+    ``labels``."""
+    def loss_fn(model, batch):
+        if cfg.encoder_only:
+            logits, aux = model(embeds=batch["embeds"])
+            loss = cross_entropy(logits, batch["labels"])
+        else:
+            logits, aux = model(tokens=batch["tokens"])
+            loss = cross_entropy(logits[:, :-1], batch["tokens"][:, 1:])
+        return loss + AUX_LOSS_WEIGHT * aux, (loss, aux)
+    return loss_fn
+
+
+def _grads(loss_fn, model, batch):
+    """(grads by name, loss, aux) of one batch; a parameter the loss does
+    not reach gets zeros, as ``jax.grad`` gives."""
+    names, params = zip(*model.named_parameters())
+    tot, (loss, aux) = loss_fn(model, batch)
+    gs = torch.autograd.grad(tot, params, allow_unused=True)
+    grads = {n: torch.zeros_like(p) if g is None else g
+             for n, p, g in zip(names, params, gs)}
+    return grads, loss.detach(), aux.detach()
+
+
+def _grads_microbatched(loss_fn, model, batch, num_microbatches: int):
+    if num_microbatches <= 1:
+        return _grads(loss_fn, model, batch)
+    mb = next(iter(batch.values())).shape[0] // num_microbatches
+    g_acc = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+             for n, p in model.named_parameters()}
+    l_acc = a_acc = 0.0
+    for i in range(num_microbatches):
+        part = {k: t[i * mb:(i + 1) * mb] for k, t in batch.items()}
+        g, loss, aux = _grads(loss_fn, model, part)
+        for n, t in g.items():
+            g_acc[n].add_(t)
+        l_acc, a_acc = l_acc + loss, a_acc + aux
+        del g
+    inv = 1.0 / num_microbatches
+    return {n: t * inv for n, t in g_acc.items()}, l_acc * inv, a_acc * inv
+
+
+def _mesh_axes(mesh) -> dict:
+    """{axis: size} of ``mesh``; raises for what this step cannot run."""
+    axes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    unknown = set(axes) - set(MESH_AXES)
+    if unknown:
+        raise ValueError(f"mesh axes {sorted(unknown)} are not among "
+                         f"{MESH_AXES}")
+    if axes.get("model", 1) > 1:
+        raise NotImplementedError(
+            "a 'model' mesh axis wider than 1 needs the sharded train step "
+            "(distributed/sharding.py), which comes with ROADMAP item 12's "
+            "next slice; this step runs 'pod' and 'data' axes")
+    return axes
+
+
+def _local_rows(batch, mesh, axes):
+    """This rank's rows of the global ``batch`` (module docstring)."""
+    n_data = axes.get("data", 1)
+    n = axes.get("pod", 1) * n_data
+    r = ((mesh.get_local_rank("pod") if "pod" in axes else 0) * n_data
+         + (mesh.get_local_rank("data") if "data" in axes else 0))
+    rows = next(iter(batch.values())).shape[0]
+    if rows % n:
+        raise ValueError(f"a batch of {rows} rows does not split over "
+                         f"{n} ranks")
+    k = rows // n
+    return {name: t[r * k:(r + 1) * k] for name, t in batch.items()}
+
+
+def _mean(tree: dict, group) -> dict:
+    """Exact fp32 mean of each leaf over the ranks of ``group``."""
+    n = dist.get_world_size(group)
+    out = {}
+    for name, t in tree.items():
+        t = t.float()            # a fresh tensor or one this step owns
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+        out[name] = t / n
+    return out
+
+
+def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
+                    num_microbatches: int = 1,
+                    grad_compression: bool = False,
+                    mesh=None):
+    """Build the train step (module docstring).
+
+    With ``grad_compression`` the mesh must have a "pod" axis and the step
+    expects ``opt_state["error"]``; the cross-pod mean then rides int8.
+    """
+    loss_fn = make_loss_fn(cfg)
+    axes = _mesh_axes(mesh) if mesh is not None else {}
+    if grad_compression and "pod" not in axes:
+        raise ValueError("grad_compression needs a mesh with a 'pod' axis")
+
+    def step(model, opt_state, batch):
+        model.requires_grad_(True)
+        if mesh is not None:
+            batch = _local_rows(batch, mesh, axes)
+        grads, loss, aux = _grads_microbatched(loss_fn, model, batch,
+                                               num_microbatches)
+        if "data" in axes:
+            grads = _mean(grads, mesh.get_group("data"))
+        if "pod" in axes:
+            group = mesh.get_group("pod")
+            if grad_compression:
+                grads, opt_state["error"] = compression.quantized_psum_mean(
+                    grads, opt_state["error"], group)
+            else:
+                grads = _mean(grads, group)
+        if axes:
+            stats = torch.stack([loss, aux]).float()
+            for axis in axes:
+                stats = _mean({"s": stats}, mesh.get_group(axis))["s"]
+            loss, aux = stats[0], stats[1]
+        metrics = adamw.update(grads, opt_state,
+                               dict(model.named_parameters()), opt_cfg)
+        metrics.update(loss=loss, aux_loss=aux)
+        return metrics
+
+    return step

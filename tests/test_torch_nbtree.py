@@ -417,7 +417,15 @@ def test_port_imports_neither_jax_nor_repro():
     scanned = {p.relative_to(ROOT).as_posix() for p in files}
     assert {"src/repro_torch/models/moe.py",
             "src/repro_torch/models/mla.py", "src/repro_torch/models/ssm.py",
-            "src/repro_torch/models/blockwise_attn.py"} <= scanned
+            "src/repro_torch/models/blockwise_attn.py",
+            "src/repro_torch/optim/adamw.py",
+            "src/repro_torch/optim/compression.py",
+            "src/repro_torch/optim/schedules.py",
+            "src/repro_torch/train/train_step.py",
+            "src/repro_torch/train/trainer.py",
+            "src/repro_torch/data/pipeline.py",
+            "src/repro_torch/launch/mesh.py",
+            "src/repro_torch/launch/train.py"} <= scanned
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]
