@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (the NB-tree device tier, durable and
 multi-tenant ingest over it, the paged-KV serving bridge, every arch of
-the model code and training) on one NVIDIA card.
+the model code, training and its sharded step) on one NVIDIA card.
 
 Run from the repository root (needs one CUDA card, the CUDA toolkit and no
 network)::
@@ -84,19 +84,41 @@ network)::
    train CLI (``repro_torch.launch.train.main``), 4 steps of 4 x 1,024
    tokens from the data pipeline; every loss and grad norm must be
    finite; prints step time p50, tokens/s, the share of the card's dense
-   bf16 peak (``PEAK_BF16_FLOPS``) that 6 * params * tokens a step makes,
+   bf16 peak (``card_rates``) that 6 * params * tokens a step makes,
    and peak device memory.  10b: the same model on one batch repeated 6
    times at a constant rate: the last loss must be below the first; the
    last 4 steps are profiled (the device's busy share), and one more
    step is split into its gradient and its AdamW update.  10c: two steps
    of qwen3-8b and deepseek-moe-16b reduced in fp32 (TF32 off) on the
-   card and on the CPU from the same weights: params, ``m`` and ``v``
-   within max(2e-5, twice the CPU fp32 run's distance from a float64
-   run).  10d: a reduced qwen3-8b trains 4 steps saving at step 2; a new
+   card and on the CPU from the same weights: the first step's gradients
+   within a fixed 2e-5 (``GRAD_ATOL``); params, ``m`` and ``v`` within
+   max(2e-5, twice the CPU fp32 run's distance from a float64 run).  10d: a reduced qwen3-8b trains 4 steps saving at step 2; a new
    ``Trainer`` restores step 2 and runs 2 more: params, ``m`` and ``v``
    must equal the uninterrupted run's bit for bit.  The compressed
    cross-pod all-reduce needs two ranks, NCCL one card a rank: the CPU
    tests run it over ``gloo``.
+11. (Runs after phase 10.)  The sharded train step and the production-
+   mesh machinery; no kernel of phase 1 is on this path, and 11a's launch
+   counts must all be 0.  11a: gemma-2b at full width, depth cut to 4
+   layers (bf16, remat "layer"), 2 steps of 4 x 1,024 tokens through the
+   sharded step (``distributed/sharding.py``: DTensor params, ``m`` and
+   ``v``, each layer's weights gathered to full) over a one-rank NCCL
+   mesh (pod, data, model) = (1, 1, 1), and 2 through the replicated
+   step from the same weights and batch: params, ``m`` and ``v`` must be
+   equal bit for bit (a world of one rank reduces nothing); prints both
+   step times and the peak memory.  11b: the sharded state saved after
+   step 1 is restored by ``elastic_resize`` onto a (data, model) = (1, 1)
+   mesh and takes one step: bit for bit equal to 11a's step 2.  11c:
+   ``repro_torch.launch.dryrun`` over all 40 cells x {single, multi} on
+   meta: the statuses of ``shapes.all_cells``, every ``run`` cell ``ok``;
+   prints each cell's per-rank GB, whether it fits in 80 GB and the three
+   roofline terms; the prefill and decode cells are marked hypothetical
+   (the port has no sharded serving path).  11d:
+   ``roofline.analysis.measured_kernel_table`` over phase 2's
+   ``dispatch_stats``; prints each impl's calls and host time only (the
+   stats time the host's enqueue, so they bound no device rate).  Sharded steps
+   over two or more ranks need a card a rank: the CPU tests run them over
+   ``gloo`` (``tests/test_torch_distributed.py``).
 6. Durable open-loop ingest with a crash and a restart: ``torch-nbtree``
    at phase 2's shape under ``repro_torch.ingest.IngestFrontend`` with a
    WAL and LSN-keyed snapshots on local disk; a preload of 2^22 keys over
@@ -135,7 +157,7 @@ network)::
    (>= 2^18 pairs) out without a capped range scan.
 
 Kernel launch counters are zeroed just before each path (2-3, 4, the
-measured runs of 8a and 8b, 9a, 10a, 6, 7) and read just after; every kernel
+measured runs of 8a and 8b, 9a, 10a, 11a, 6, 7) and read just after; every kernel
 must have launched on its own path (the four NB-tree kernels of the write
 side and the point reads on phase 6's too, and those and
 ``range_scan_rows`` on phase 7's; the root merge, the search, the probe
@@ -151,7 +173,9 @@ import collections
 import contextlib
 import ctypes
 import dataclasses
+import functools
 import gc
+import io
 import json
 import shutil
 import subprocess
@@ -163,12 +187,24 @@ from pathlib import Path
 import numpy as np
 import torch
 
-PEAK_BYTES_S = 3.35e12       # H100 SXM HBM3, NVIDIA data sheet
-PEAK_OPS_S = 67e12           # H100 SXM non-tensor fp32 rate (attention's fp32
-                             # ops; it stands in for int ops too)
-#: dense bf16 tensor-core peak by card (NVIDIA data sheets, no sparsity);
-#: phase 10 divides its model FLOPs by the one its card's name picks
-PEAK_BF16_FLOPS = {"H100 SXM": 989e12, "H100 PCIe": 756e12}
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+from repro_torch.roofline import hardware  # noqa: E402
+
+
+
+@functools.cache
+def card_rates() -> dict:
+    """This card's rates, looked up once by its name in
+    ``roofline/hardware.py`` (NVIDIA data sheets), and its ``variant``:
+    ``hbm_bw`` bytes/s, ``fp32_ops`` the non-tensor fp32 rate (attention's
+    fp32 ops; it stands in for int ops too), ``bf16_flops`` the dense bf16
+    tensor-core peak (no sparsity).  The SXM's without a card (a phase
+    rehearsed on the CPU)."""
+    name = torch.cuda.get_device_name(0) if torch.cuda.is_available() else ""
+    label = hardware.variant(name)
+    return {**hardware.H100[label], "variant": label}
+
+
 KEY_MAX = 0xFFFFFFFF
 RUN_CAP, NW, H = 21504, 6784, 3      # f=4, sigma=4096 node-row shape
 #: the path whose launches a kernel's row reports (the NB-tree path if absent)
@@ -607,7 +643,8 @@ def search_bound_ms(cnt) -> float:
     search reads, plus each query's inputs and outputs."""
     reads = search_len(cnt).sum().item()
     nbytes = 8 * reads + cnt.numel() * (4 + 8 + 4 + 4 + 1 + 4 + 4)
-    return max(nbytes / PEAK_BYTES_S, reads * 6 / PEAK_OPS_S) * 1e3
+    rates = card_rates()
+    return max(nbytes / rates["hbm_bw"], reads * 6 / rates["fp32_ops"]) * 1e3
 
 
 def search_timings(g, dev, tkeys, tvals, tcounts, label: str) -> dict:
@@ -766,8 +803,9 @@ def bloom_sets(g, dev, bloom, page_bloom, tkeys, tcounts, shape: str,
 def bloom_bound_ms(Q: int, h: int) -> float:
     """One probe launch: each query's row, key, output and h words moved
     once; ~12 integer ops a hash."""
-    return max(Q * (h * 8 + 8 + 4 + 1) / PEAK_BYTES_S,
-               Q * h * 12 / PEAK_OPS_S) * 1e3
+    rates = card_rates()
+    return max(Q * (h * 8 + 8 + 4 + 1) / rates["hbm_bw"],
+               Q * h * 12 / rates["fp32_ops"]) * 1e3
 
 
 def bloom_timings(g, dev, bloom, page_bloom, tkeys, tcounts,
@@ -954,7 +992,8 @@ def range_work(ncnt, n_match, cap: int) -> tuple:
 
 def range_bound_ms(ncnt, n_match, cap: int) -> float:
     nbytes, nops = range_work(ncnt, n_match, cap)
-    return max(nbytes / PEAK_BYTES_S, nops / PEAK_OPS_S) * 1e3
+    rates = card_rates()
+    return max(nbytes / rates["hbm_bw"], nops / rates["fp32_ops"]) * 1e3
 
 
 def range_timings(g, dev, tkeys, tvals, tcounts, label: str) -> dict:
@@ -1120,7 +1159,8 @@ def pa_bound_ms(c) -> float:
     table and seq_lens read, over the card's memory rate."""
     kv = c["B"] * c["KVH"] * c["MP"] * c["S"] * c["D"] * 2 * 4
     qo = 2 * c["B"] * c["KVH"] * c["G"] * c["D"] * 2
-    return (kv + qo + c["B"] * c["MP"] * 4 + c["B"] * 4) / PEAK_BYTES_S * 1e3
+    return ((kv + qo + c["B"] * c["MP"] * 4 + c["B"] * 4)
+            / card_rates()["hbm_bw"] * 1e3)
 
 
 def pa_arch_timings(g, dev, label: str) -> None:
@@ -1178,7 +1218,8 @@ def phase_kernels(dev, variants: dict) -> dict:
         ms_p = device_ms(plain_fn, reps)
         ms_l = device_ms(lib_fn, reps) if lib_fn else None
         ms_call = call_ms(cuda_fn, reps)
-        t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, nops / PEAK_OPS_S * 1e3
+        t_bytes = nbytes / card_rates()["hbm_bw"] * 1e3
+        t_ops = nops / card_rates()["fp32_ops"] * 1e3
         rows[name] = {"name": name, "route": "cuda",
                       "source": f"src/repro_torch/kernels/csrc/{source}",
                       "replaces": replaces, "launches": 0,
@@ -1529,7 +1570,9 @@ def run_mix(engine, workload, oracle, OpKind, label):
     return rates, n_ops / t_serve
 
 
-def phase_main_path(dev, args) -> dict:
+def phase_main_path(dev, args):
+    """Phases 2-3; returns (their kernel launches, the index's
+    ``dispatch_stats``: impl name -> {count, wall_s, bytes})."""
     from repro_torch.core.engine_api import OpBatch, OpKind, TorchNBTreeEngine
     from repro_torch.core.splitmix import splitmix64
     from repro_torch.kernels import ops
@@ -1624,7 +1667,7 @@ def phase_main_path(dev, args) -> dict:
         + json.dumps({k: v["count"] for k, v in sorted(ds.items())}))
     log(f"  Bloom: {st.bloom_probes} probes, {st.bloom_negative_skips} "
         f"negative skips, {st.bloom_false_positives} false positives")
-    return launches
+    return launches, ds
 
 
 # ------------------------------------------------------------------ phase 4
@@ -2396,12 +2439,6 @@ TRAIN = dict(arch="gemma-2b", batch=4, seq=1024, steps=4, params=2_506_172_416)
 LOSS_STEPS, LOSS_LR = 6, 3e-4
 
 
-def bf16_peak(name: str):
-    """(label, FLOP/s) of the card's dense bf16 peak by its name."""
-    label = "H100 PCIe" if "PCIe" in name else "H100 SXM"
-    return label, PEAK_BF16_FLOPS[label]
-
-
 def train_pair(arch: str, dev, seed: int):
     """(config, CPU model, card model, CPU float64 model) of ``arch``
     reduced in fp32 with the same weights, drawn on the CPU from
@@ -2436,23 +2473,47 @@ def state_diffs(a, b) -> dict:
     return out
 
 
+#: 10c's bound on the first step's gradients, card vs CPU (fp32, TF32
+#: off): the reference's own bound between two runs of a step
+#: (``tests/test_distributed.py``), fixed
+GRAD_ATOL = 2e-5
+
+
 def train_card_vs_cpu(dev, args) -> None:
     """10c: two train steps of qwen3-8b and deepseek-moe-16b reduced, fp32,
     TF32 off, on the card and on the CPU from the same weights and batch,
-    and the same on the CPU in float64.  Params, ``m`` and ``v`` of the
-    card must lie within ``max(2e-5, 2 * e)`` of the CPU's, ``e`` the
-    CPU fp32 run's distance from the float64 run: the reference's own
-    bound between two runs of a step (``tests/test_distributed.py``),
-    unless fp32 rounding alone, which AdamW's normalisation amplifies on
-    weights whose gradient is near ``eps``, is wider."""
+    and the same on the CPU in float64.  The first step's gradients (before
+    AdamW) of the card must lie within ``GRAD_ATOL`` of the CPU's.  Params,
+    ``m`` and ``v`` of the card must lie within ``max(2e-5, 2 * e)`` of
+    the CPU's, ``e`` the CPU fp32 run's distance from the float64 run: the
+    reference's own bound between two runs of a step, unless fp32
+    rounding alone, which AdamW's normalisation amplifies on weights whose
+    gradient is near ``eps``, is wider."""
     from repro_torch.optim import adamw
-    from repro_torch.train.train_step import make_train_step
+    from repro_torch.train.train_step import (_grads_microbatched,
+                                              make_loss_fn, make_train_step)
 
     assert not torch.backends.cuda.matmul.allow_tf32
     for arch in ("qwen3-8b", "deepseek-moe-16b"):
         cfg, host, card, exact = train_pair(arch, dev, args.seed)
         toks = torch.from_numpy(np.random.default_rng(args.seed).integers(
             1, cfg.vocab, (8, 64)).astype(np.int64))
+        first = []
+        for model in (host, card):
+            model.requires_grad_(True)
+            g, _, _ = _grads_microbatched(make_loss_fn(cfg), model,
+                                          {"tokens": toks.to(model.device)}, 1)
+            first.append(g)
+        gdiff = max(float((first[1][n].cpu() - g).abs().max())
+                    for n, g in first[0].items())
+        gmax = max(float(g.abs().max()) for g in first[0].values())
+        log(f"  {arch} reduced, fp32: first-step gradients, card vs CPU max "
+            f"abs diff {gdiff:.3e} (fixed bound {GRAD_ATOL:.0e}; largest "
+            f"gradient {gmax:.4f})")
+        if not gdiff <= GRAD_ATOL:
+            raise AssertionError(f"10c {arch}: the card's gradients differ "
+                                 "from the CPU's")
+        del first
         runs = []
         for model in (host, card, exact):
             step = make_train_step(model.cfg, adamw.AdamWConfig(lr=1e-3))
@@ -2543,8 +2604,7 @@ def phase_train(dev, args, cfg=None) -> dict:
     t0 = time.perf_counter()
     times = {}
     tokens = TRAIN["batch"] * TRAIN["seq"]
-    label, peak_flops = bf16_peak(torch.cuda.get_device_name(0)
-                                  if dev.type == "cuda" else "")
+    label, peak_flops = card_rates()["variant"], card_rates()["bf16_flops"]
     log(f"  10a: {TRAIN['arch']} at full width and depth through "
         "repro_torch.launch.train.main")
     argv = ["--arch", TRAIN["arch"], "--steps", str(TRAIN["steps"]),
@@ -2644,6 +2704,237 @@ def phase_train(dev, args, cfg=None) -> dict:
                                              for k, v in times.items())
         + (f"; busy share of 10b's profiled steps {share:.4f}"
            if share is not None else ""))
+    return launches
+
+
+# ----------------------------------------------------------------- phase 11
+#: 11a: gemma-2b at full width, its depth cut to 4 layers (its config: bf16,
+#: remat "layer"), 4 rows of 1,024 tokens, 2 steps at a constant rate
+SHARDED = dict(arch="gemma-2b", layers=4, batch=4, seq=1024, steps=2,
+               lr=3e-4)
+
+
+def free_port() -> int:
+    """A free TCP port on localhost for a process group's rendezvous."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def sharded_config(cfg=None):
+    from repro_torch.models import registry
+
+    cfg = cfg or registry.get_config(SHARDED["arch"])
+    if cfg.n_layers <= SHARDED["layers"]:
+        return cfg
+    return dataclasses.replace(cfg, n_layers=SHARDED["layers"],
+                               segments=((cfg.segments[0][0],
+                                          SHARDED["layers"]),))
+
+
+def state_equal(model_a, opt_a, model_b, opt_b) -> bool:
+    """Params, ``m``, ``v`` and count bit for bit (DTensors by their local
+    pieces: on a one-rank mesh, the whole tensor)."""
+    def local(t):
+        return t.to_local() if hasattr(t, "to_local") else t
+
+    pb = dict(model_b.named_parameters())
+    same = int(opt_a["count"]) == int(opt_b["count"])
+    for n, p in model_a.named_parameters():
+        same &= torch.equal(local(p), local(pb[n]))
+        for k in ("m", "v"):
+            same &= torch.equal(local(opt_a[k][n]), local(opt_b[k][n]))
+    return bool(same)
+
+
+def ckpt_bytes(directory: str) -> int:
+    """Bytes of every file under ``directory``."""
+    return sum(f.stat().st_size for f in Path(directory).rglob("*")
+               if f.is_file())
+
+
+def phase_sharded(dev, args, nbtree_stats, cfg=None) -> dict:
+    """Phase 11 (see the module docstring); returns the kernel launches of
+    11a's sharded run.  ``cfg`` replaces 11a's config only to rehearse the
+    phase on the CPU (over ``gloo``)."""
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.checkpointer import Checkpointer
+    from repro_torch.configs.shapes import all_cells
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.fault_tolerance import elastic_resize
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import registry
+    from repro_torch.models.transformer import (Transformer, init_params,
+                                                param_count)
+    from repro_torch.optim import adamw, schedules
+    from repro_torch.roofline.analysis import measured_kernel_table
+    from repro_torch.train.train_step import make_train_step
+
+    t0 = time.perf_counter()
+    times = {}
+    cfg = sharded_config(cfg)
+    on_card = dev.type == "cuda"
+    dist.init_process_group("nccl" if on_card else "gloo",
+                            init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        kind = "cuda" if on_card else "cpu"
+        mesh = make_mesh((1, 1, 1), ("pod", "data", "model"), kind)
+        opt_cfg = adamw.AdamWConfig(lr=schedules.constant(SHARDED["lr"]))
+        batch = {"tokens": torch.from_numpy(np.random.default_rng(
+            args.seed).integers(1, cfg.vocab, (SHARDED["batch"],
+                                               SHARDED["seq"])).astype(
+            np.int32)).to(dev)}
+        log(f"  11a: {cfg.name} at full width, {cfg.n_layers} layers "
+            f"({cfg.dtype}, remat {cfg.remat}), {SHARDED['batch']} x "
+            f"{SHARDED['seq']} tokens: the sharded step over a one-rank "
+            f"{'NCCL' if on_card else 'gloo'} mesh (pod, data, model) = "
+            "(1, 1, 1) against the replicated step, same weights and batch")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        shard = sharding.shard_model(init_params(cfg, seed=args.seed,
+                                                 device=dev), mesh)
+        shard_opt = adamw.init(dict(shard.named_parameters()))
+        sharded_step = make_train_step(cfg, opt_cfg, mesh=mesh)
+        ckpt = Checkpointer(tmp.name)
+        secs = {"sharded": [], "replicated": []}
+        ops.reset_launch_counts()
+        for i in range(SHARDED["steps"]):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            m = sharded_step(shard, shard_opt, batch)
+            loss = float(m["loss"])
+            secs["sharded"].append(time.perf_counter() - t1)
+            if not np.isfinite(loss):
+                raise AssertionError(f"11a: sharded loss {loss}")
+            if i == 0:          # 11b restarts from here
+                t1 = time.perf_counter()
+                ckpt.save(1, sharding.full_state(
+                    {"params": dict(shard.named_parameters()),
+                     "opt": {k: shard_opt[k] for k in ("m", "v", "count")}}))
+                save_s = time.perf_counter() - t1
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        peak_sharded = torch.cuda.max_memory_allocated()
+        n_params = param_count(shard)
+        torch.cuda.reset_peak_memory_stats()
+        rep = init_params(cfg, seed=args.seed, device=dev)
+        rep_opt = adamw.init(dict(rep.named_parameters()))
+        rep_step = make_train_step(cfg, opt_cfg)
+        for _ in range(SHARDED["steps"]):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            float(rep_step(rep, rep_opt, batch)["loss"])
+            secs["replicated"].append(time.perf_counter() - t1)
+        torch.cuda.synchronize()
+        peak_rep = torch.cuda.max_memory_allocated()
+        same = state_equal(shard, shard_opt, rep, rep_opt)
+        log(f"  11a: {n_params} parameters; step s sharded "
+            f"{[round(x, 6) for x in secs['sharded']]}, replicated "
+            f"{[round(x, 6) for x in secs['replicated']]} (the first of "
+            f"each builds its plans); peak device memory sharded "
+            f"{peak_sharded} B, with the replicated model beside it "
+            f"{peak_rep} B; after {SHARDED['steps']} steps params, m, v and "
+            f"count bit for bit equal: {same}")
+        if not same:
+            raise AssertionError("11a: the sharded step differs from the "
+                                 "replicated one")
+        if any(launches.values()):
+            raise AssertionError(f"11a launched a kernel: {launches}")
+        log("  11a launched none of the six kernels: " + json.dumps(launches))
+        del rep, rep_opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        times["11a"] = time.perf_counter() - t0 - save_s
+        times["11b"] = save_s
+
+        mesh2 = make_mesh((1, 1), ("data", "model"), kind)
+        like = dict(Transformer(cfg, device="meta").named_parameters())
+        t1 = time.perf_counter()
+        state = elastic_resize(ckpt, 1, {"params": like,
+                                         "opt": adamw.init(like)},
+                               mesh2, sharding.param_specs)
+        restore_s = time.perf_counter() - t1
+        resized = sharding.shard_model(Transformer(cfg, device="meta"),
+                                       mesh2, params=state["params"])
+        resized_opt = state["opt"]
+        m = make_train_step(cfg, opt_cfg, mesh=mesh2)(resized, resized_opt,
+                                                      batch)
+        same = state_equal(resized, resized_opt, shard, shard_opt)
+        log(f"  11b: step 1 saved ({3 * len(like) + 1} leaves, "
+            f"{ckpt_bytes(tmp.name)} B on disk) in {save_s:.3f} s "
+            f"(gathered, written, fsynced, checksummed), elastic_resize "
+            f"onto (data, model) = (1, 1) in {restore_s:.3f} s, one step "
+            f"(loss {float(m['loss']):.6f}): params, m, v and count bit for "
+            f"bit equal to 11a's step 2: {same}")
+        if not same:
+            raise AssertionError("11b: the resized run differs from 11a")
+        del shard, shard_opt, resized, resized_opt, state
+        gc.collect()
+        torch.cuda.empty_cache()
+        times["11b"] += time.perf_counter() - t0 - sum(times.values())
+    finally:
+        dist.destroy_process_group()
+        tmp.cleanup()
+
+    out = Path(tempfile.mkdtemp()) / "dryrun.jsonl"
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):   # its cell lines
+            recs = dryrun.main(["--all", "--mesh", "both", "--out",
+                                str(out)])
+    finally:
+        shutil.rmtree(out.parent)
+    want = all_cells({a: registry.get_config(a)
+                      for a in registry.list_archs()})
+    for mesh_kind in ("single", "multi"):
+        got = [(r["arch"], r["shape"], r["status"]) for r in recs
+               if r["mesh_kind"] == mesh_kind]
+        expect = [(a, s, "ok" if w == "run" else w) for a, s, w in want]
+        if got != expect:
+            raise AssertionError(f"11c {mesh_kind}: {got} != {expect}")
+    log(f"  11c: repro_torch.launch.dryrun over {len(want)} cells x "
+        f"{{single, multi}} on meta: {len(recs)} records, the statuses of "
+        "all_cells, every run cell ok; per rank (train cells, the plan "
+        f"the port runs: {dryrun.PLAN}; prefill and decode cells, marked "
+        f"[hypothetical]: {dryrun.SERVE_PLAN}):")
+    log("    mesh   arch x shape: per-rank GB (params, opt, activation "
+        "estimate), fits 80 GB; t_compute, t_memory, t_collective s, "
+        "bottleneck")
+    for r in recs:
+        if r["status"] != "ok":
+            continue
+        b, ro = r["per_rank_bytes"], r["roofline"]
+        tag = "" if r["plan"] == dryrun.PLAN else " [hypothetical]"
+        log(f"    {r['mesh']:>7} {r['arch']} x {r['shape']}{tag}: "
+            f"{b['total'] / 1e9:.3f} ({b['params'] / 1e9:.3f}, "
+            f"{b.get('opt_m_v', 0.0) / 1e9:.3f}, "
+            f"{b['activation_estimate'] / 1e9:.3f}), fits {r['fits']}; "
+            f"{ro['t_compute']:.6f}, {ro['t_memory']:.6f}, "
+            f"{ro['t_collective']:.6f}, {ro['bottleneck']}")
+    times["11c"] = time.perf_counter() - t0 - sum(times.values())
+
+    rows = measured_kernel_table(nbtree_stats,
+                                 peak_bw=card_rates()["hbm_bw"])
+    if not rows:
+        raise AssertionError("11d: phase 2 recorded no dispatch stats")
+    # dispatch_stats time the host's enqueue of each impl call and count
+    # whole tables as its bytes, so a rate or a share of the HBM peak
+    # taken from them bounds neither the device's time nor its traffic:
+    # only the calls and their host time are printed
+    log("  11d: measured_kernel_table over phase 2's dispatch_stats (calls "
+        "and the host's clock around each impl call; no rates):")
+    for r in rows:
+        log(f"    {r['kernel']}: {r['count']} calls, {r['wall_s']:.6f} s")
+    times["11d"] = time.perf_counter() - t0 - sum(times.values())
+    log("  phase 11 parts took " + ", ".join(f"{k} {v:.1f} s"
+                                             for k, v in times.items()))
     return launches
 
 
@@ -3197,7 +3488,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.kernels import _build
 
     dev = torch.device("cuda")
@@ -3208,7 +3498,10 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
-    log(f"device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    log(f"device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}"
+        f"; rates of the {card_rates()['variant']} (roofline/hardware.py): "
+        f"{card_rates()['hbm_bw']:.4g} B/s, {card_rates()['fp32_ops']:.4g} "
+        "fp32 op/s")
     tmp = tempfile.TemporaryDirectory()
     variants = build_kernels(tmp.name)
 
@@ -3218,7 +3511,8 @@ def main() -> int:
     finally:
         tmp.cleanup()
     log("phase 2+3: NB-tree path through TorchNBTreeEngine, checked by an oracle")
-    paths = {"nbtree": phase_main_path(dev, args)}
+    paths = {}
+    paths["nbtree"], nbtree_stats = phase_main_path(dev, args)
     log("launches on the NB-tree path: " + json.dumps(paths["nbtree"]))
     log("phase 4: qwen3-8b served at full width through the paged-KV engine")
     paths["serve"] = phase_serve(dev, args)
@@ -3243,6 +3537,12 @@ def main() -> int:
     t10 = time.perf_counter()
     paths["train"] = phase_train(dev, args)
     log(f"phase 10 took {time.perf_counter() - t10:.1f} s")
+    log("phase 11: the sharded train step (one-rank NCCL mesh vs the "
+        "replicated step), elastic resize, the meta dry-run of every cell, "
+        "the measured impl table")
+    t11 = time.perf_counter()
+    paths["sharded"] = phase_sharded(dev, args, nbtree_stats)
+    log(f"phase 11 took {time.perf_counter() - t11:.1f} s")
     log("phase 6: durable open-loop ingest over torch-nbtree, crash and "
         "restart")
     t6 = time.perf_counter()

@@ -18,6 +18,13 @@ so for a nested dict of arrays either package restores the other's
 checkpoint.  bf16 leaves are saved as float32 (lossless) and cast back on
 restore; ``restore`` puts each leaf on the device of its ``like`` leaf.
 
+Sharded state (``distributed/sharding.py``): the caller gathers each
+DTensor to its full tensor (``sharding.full_state``) and one rank saves.
+``restore`` gives a leaf whose ``like`` is a DTensor back as a DTensor
+placed like it, and ``restore(..., placements=)`` places leaves on
+another mesh (``distributed/fault_tolerance.py::elastic_resize``): every
+rank reads the full arrays and keeps its own pieces.
+
 Async: ``save(..., blocking=False)`` snapshots to host *and mutates the
 manifest* synchronously, then writes files on a daemon thread; ``wait()``
 joins, and every reader (``restore``/``latest_step``) waits first, so the
@@ -90,12 +97,19 @@ def _flatten(tree) -> dict:
     return out
 
 
-def _unflatten(like, host: dict):
+def _unflatten(like, host: dict, placements=None, device=None):
     """``like``'s structure with each leaf taken from ``host`` by path,
     cast to the leaf's dtype and put on its device (an ``nn.Module`` gives
-    its ``state_dict`` layout)."""
+    its ``state_dict`` layout); a DTensor ``like`` leaf, or one named in
+    ``placements`` (``{path: (mesh, placements)}``), comes back as a
+    DTensor on that mesh; a ``like`` leaf on ``meta`` goes to ``device``."""
+    from torch.distributed.tensor import DTensor
+
+    from ..distributed.sharding import shard_tensor
+
     if isinstance(like, torch.nn.Module):
         like = like.state_dict()
+    placements = placements or {}
 
     def rec(node, path):
         if isinstance(node, dict):
@@ -104,10 +118,19 @@ def _unflatten(like, host: dict):
         if isinstance(node, (list, tuple)):
             return type(node)(rec(c, (*path, str(i)))
                               for i, c in enumerate(node))
-        arr = host[".".join(path)]
+        name = ".".join(path)
+        arr = host[name]
         if isinstance(node, torch.Tensor):
-            return torch.from_numpy(arr).to(device=node.device,
-                                            dtype=node.dtype)
+            place = placements.get(name)
+            if place is None and isinstance(node, DTensor):
+                place = (node.device_mesh, node.placements)
+            if place is not None:
+                mesh, places = place
+                full = torch.from_numpy(arr).to(
+                    device=torch.device(mesh.device_type), dtype=node.dtype)
+                return shard_tensor(full, mesh, places)
+            dev = device if node.device.type == "meta" else node.device
+            return torch.from_numpy(arr).to(device=dev, dtype=node.dtype)
         return arr.astype(np.asarray(node).dtype, copy=False)
 
     return rec(like, ())
@@ -236,9 +259,11 @@ class Checkpointer:
                      if d.startswith("step_") and d.split("_")[1].isdigit()]
         return max(steps) if steps else None
 
-    def restore(self, step: int, like):
+    def restore(self, step: int, like, placements=None, device=None):
         """Rebuild the tree of ``like`` (shapes, dtypes, devices) from the
-        step's files.
+        step's files.  ``placements`` (``{leaf path: (mesh, placements)}``)
+        and DTensor ``like`` leaves place leaves on a mesh, and ``device``
+        takes the leaves whose ``like`` is on ``meta`` (``_unflatten``).
 
         Raises :class:`CheckpointError` on any validation failure (missing
         manifest record, missing file, shape mismatch) — real exceptions,
@@ -265,7 +290,7 @@ class Checkpointer:
                     f"saved {arr.shape}, expected {tuple(leaf.shape)}")
             host[path] = arr
 
-        return _unflatten(like, host)
+        return _unflatten(like, host, placements, device)
 
     # ------------------------------------------------------------ integrity
     def _verify_leaf(self, step: int, path: str, fp: str) -> None:

@@ -22,6 +22,7 @@ def resolve_device(device=None) -> torch.device:
         if not torch.cuda.is_available():
             raise RuntimeError(f"device {dev} requested but CUDA is not "
                                "available")
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
+    elif dev.type not in ("cpu", "meta"):
+        raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu' "
+                         "('meta' builds shapes only: the dry-run)")
     return dev

@@ -1,5 +1,5 @@
-"""Fault tolerance: heartbeats and straggler detection; the port's copy
-of ``repro/distributed/fault_tolerance.py`` (numpy only).
+"""Fault tolerance: heartbeats, straggler detection, elastic resize; the
+port's copy of ``repro/distributed/fault_tolerance.py``.
 
 * ``HeartbeatMonitor`` — hosts report heartbeats on any monotone clock
   (integer steps *or* float sim-seconds — the replication layer's failure
@@ -8,10 +8,13 @@ of ``repro/distributed/fault_tolerance.py`` (numpy only).
 * ``StragglerDetector`` — per-host step-time EWMA; hosts slower than
   ``z_threshold`` sigma above the fleet mean are flagged (the sharded
   engine's maintenance scheduler front-loads them).
-
-The reference's ``elastic_resize`` reshards a JAX mesh from a checkpoint;
-it belongs with training and distribution, which the port has not taken
-yet.
+* ``elastic_resize`` — restores a checkpointed train state onto a
+  *different* mesh (fewer ranks after a host died): every rank reads the
+  full arrays and keeps its pieces for the new mesh's placements
+  (``checkpoint/checkpointer.py``, ``distributed/sharding.py``).  The
+  caller builds its train step for the new mesh; training resumes with a
+  proportionally smaller global batch, or the same batch over more
+  microbatches (the caller's policy).
 """
 from __future__ import annotations
 
@@ -105,3 +108,30 @@ class StragglerDetector:
         return [h for h, v in self.ewma.items()
                 if v is not None and (v - mu) / sd > self.z]
 
+
+
+def elastic_resize(checkpointer, step: int, state_like, new_mesh,
+                   param_specs_fn):
+    """Restore checkpointed state onto a *different* mesh.
+
+    ``state_like`` = ``{"params": {name: tensor}, "opt": {"m", "v",
+    "count"}}`` gives names, shapes and dtypes (the structure the trainer
+    checkpoints; its leaves may be on ``meta``).  ``param_specs_fn(params,
+    mesh)`` gives each parameter's spec (``sharding.param_specs``).
+    Returns that state with the parameters, ``m`` and ``v`` DTensors placed
+    for ``new_mesh`` and ``count`` on its device; the caller makes its
+    train step with the new mesh (``sharding.shard_model(model, new_mesh,
+    params=...)`` puts the parameters in a model).
+    """
+    import torch
+
+    from .sharding import placements
+
+    specs = param_specs_fn(state_like["params"], new_mesh)
+    places = {}
+    for name, spec in specs.items():
+        pl = (new_mesh, placements(spec, new_mesh))
+        for prefix in ("params", "opt.m", "opt.v"):
+            places[f"{prefix}.{name}"] = pl
+    return checkpointer.restore(step, state_like, placements=places,
+                                device=torch.device(new_mesh.device_type))

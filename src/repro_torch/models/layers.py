@@ -41,15 +41,22 @@ def _weight(shape, dtype, device) -> nn.Parameter:
                         requires_grad=False)
 
 
+def stat(x):
+    """``x`` for statistics and recurrent state: fp32, as the reference's
+    ``astype(jnp.float32)``, except that a float64 tensor stays float64
+    (a float64 model, as the float64 checks of the tests run one)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 # -------------------------------------------------------------------- norms
 def rms_norm(x, scale, eps):
-    xf = x.float()
+    xf = stat(x)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale
 
 
 def layer_norm(x, scale, bias, eps):
-    xf = x.float()
+    xf = stat(x)
     mu = torch.mean(xf, dim=-1, keepdim=True)
     var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
     return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * scale + bias

@@ -11,10 +11,21 @@ assignments are grouped by a stable sort on expert id, truncated to
 as one batched product ``(E, cap, d) @ (E, d, d_ff)``: every expert's
 ``cap`` rows run, used or not, as in the reference.
 
-The reference batches the dispatch over G data-parallel groups read from
-its JAX mesh (``_dp_groups``).  The port has no mesh, so G = 1: every
-token of the call is one group, which is what the reference computes
-without a mesh too.
+The reference batches the dispatch over G = pod x data groups read from
+its JAX mesh (``_dp_groups``), each a contiguous slice of the batch's
+rows.  The port dispatches every token of a call as one group: without a
+mesh that is the reference's G = 1, and under the sharded train step
+each rank runs the rows of its own (pod, data) slot, so a call is exactly
+one of the reference's groups.  (The reference falls back to G = 1 when
+a group would hold fewer than E / capacity_factor tokens; the port
+keeps its groups there.)
+
+The load-balancing term is computed on all of the step's tokens in the
+reference (GSPMD sees the global batch).  Under a mesh each rank holds
+its own rows, so the expert fractions (no gradient) are averaged over
+the data-parallel ranks first (``sharding.dp_mean``); each rank's term
+then averages, over the ranks, to the reference's, and so does its
+gradient.
 """
 from __future__ import annotations
 
@@ -22,6 +33,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed.sharding import dp_mean
 from .layers import MLP, _weight
 
 
@@ -117,5 +129,5 @@ def aux_load_balance_loss(x, p, cfg):
     logits = x.reshape(N, -1).float() @ p.router
     probs = torch.softmax(logits, dim=-1)
     _, eidx = torch.topk(logits, cfg.top_k, dim=-1)
-    frac = F.one_hot(eidx, cfg.n_experts).float().mean(dim=(0, 1))
+    frac = dp_mean(F.one_hot(eidx, cfg.n_experts).float().mean(dim=(0, 1)))
     return cfg.n_experts * torch.sum(frac * probs.mean(0))

@@ -2,7 +2,7 @@
 
 The port of ``repro/models/ssm.py``.  Each recurrence is a Python loop
 over time of the reference's step (JAX scans it), in the same dtypes:
-state math in fp32, projections, the conv and ``dt`` in the model dtype.
+state math in fp32 (float64 in a float64 model, ``layers.stat``), projections, the conv and ``dt`` in the model dtype.
 Each block is ``(x, p, cfg, state=None) -> (out, state)``; a prefill runs
 it over the whole sequence, a decode step over one token with the state.
 Floors are ``torch.maximum`` against 1, as the reference's
@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import _weight, rms_norm
+from .layers import _weight, rms_norm, stat
 
 
 def _ones(n, dtype, device) -> nn.Parameter:
@@ -51,15 +51,15 @@ class MLSTM(nn.Module):
 def _mlstm_step(state, q, k, v, i_pre, f_pre, dk):
     """One recurrence step with the exponential-gating stabilizer m."""
     C, n, m = state
-    logf = F.logsigmoid(f_pre.float())
-    m_new = torch.maximum(logf + m, i_pre.float())
-    i_g = torch.exp(i_pre.float() - m_new)
+    logf = F.logsigmoid(stat(f_pre))
+    m_new = torch.maximum(logf + m, stat(i_pre))
+    i_g = torch.exp(stat(i_pre) - m_new)
     f_g = torch.exp(logf + m - m_new)
-    kf = k.float() / math.sqrt(dk)
+    kf = stat(k) / math.sqrt(dk)
     C = f_g[..., None, None] * C + i_g[..., None, None] * (
-        kf[..., :, None] * v.float()[..., None, :])
+        kf[..., :, None] * stat(v)[..., None, :])
     n = f_g[..., None] * n + i_g[..., None] * kf
-    qf = q.float()
+    qf = stat(q)
     num = torch.einsum("bhk,bhkv->bhv", qf, C)
     den = torch.maximum(torch.abs(torch.einsum("bhk,bhk->bh", qf, n)),
                         qf.new_ones(()))
@@ -119,16 +119,16 @@ def slstm_block(x, p, cfg, state=None):
     c, n, m, h = state
     hs = []
     for t in range(S):
-        rec = (h.to(x.dtype) @ p.r).float()
-        ip = i_pre[:, t].float() + rec
-        zt = torch.tanh(z_pre[:, t].float() + rec)
-        logf = F.logsigmoid(f_pre[:, t].float() + rec)
+        rec = stat(h.to(x.dtype) @ p.r)
+        ip = stat(i_pre[:, t]) + rec
+        zt = torch.tanh(stat(z_pre[:, t]) + rec)
+        logf = F.logsigmoid(stat(f_pre[:, t]) + rec)
         m_new = torch.maximum(logf + m, ip)
         i_g = torch.exp(ip - m_new)
         f_g = torch.exp(logf + m - m_new)
         c = f_g * c + i_g * zt
         n = f_g * n + i_g
-        h = torch.sigmoid(o_pre[:, t].float()) * c / torch.maximum(
+        h = torch.sigmoid(stat(o_pre[:, t])) * c / torch.maximum(
             n, n.new_ones(()))
         m = m_new
         hs.append(h)

@@ -18,6 +18,13 @@ autograd graph; training turns gradients on (``model.requires_grad_(True)``,
 the reference's ``jax.checkpoint`` of the block body.  ``decode_step`` and
 the serving steps run under ``torch.no_grad()``.
 
+A model whose parameters are DTensors (``distributed/sharding.py::
+shard_model``, the sharded train step) sets ``gather``: ``forward`` then
+runs each block on its weights gathered to full, inside the block's
+checkpoint under ``remat == "layer"`` so that the backward gathers them
+again instead of keeping them, and the embedding, final norm and
+unembedding on theirs.
+
 ``forward`` returns the reference's aux term with the logits: the sum of
 every ``moe``/``moe_swa`` layer's load-balancing loss (fp32 scalar, zero
 for a stack without MoE).  The caches are lists with one entry per layer
@@ -33,9 +40,12 @@ beside a Mamba SSM on the same input).
 """
 from __future__ import annotations
 
+import types
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
@@ -43,7 +53,7 @@ from . import mla as mla_lib
 from . import moe as moe_lib
 from . import ssm as ssm_lib
 from .layers import (MLP, Attention, Norm, _dense_init, apply_norm, attention,
-                     mlp)
+                     mlp, stat)
 
 HYBRID_KINDS = ("hybrid", "hybrid_global")
 CELLS = {"mlstm": (ssm_lib.MLSTM, ssm_lib.mlstm_block),
@@ -221,6 +231,8 @@ class Transformer(nn.Module):
         self.layers = nn.ModuleList(Block(kind, cfg, dtype, dev)
                                     for kind, count in cfg.segments
                                     for _ in range(count))
+        #: ``{name: DTensor} -> {name: full tensor}`` on a sharded model
+        self.gather = None
 
     @property
     def device(self) -> torch.device:
@@ -228,6 +240,27 @@ class Transformer(nn.Module):
 
     def unembed_weight(self):
         return self.embed.T if self.cfg.tie_embeddings else self.unembed
+
+    def _top_weights(self):
+        """(embed, final norm, unembed weight): the model's own, or on a
+        sharded model gathered to full."""
+        if self.gather is None:
+            return self.embed, self.final_norm, self.unembed_weight()
+        w = self.gather({n: p for n, p in self.named_parameters()
+                         if not n.startswith("layers.")})
+        norm = types.SimpleNamespace(scale=w["final_norm.scale"],
+                                     bias=w.get("final_norm.bias"))
+        embed = w["embed"]
+        return embed, norm, (embed.T if self.cfg.tie_embeddings
+                             else w["unembed"])
+
+    def _block(self, blk, *args):
+        """``blk(*args)``, on its weights gathered to full on a sharded
+        model."""
+        if self.gather is None:
+            return blk(*args)
+        return functional_call(blk, self.gather(dict(blk.named_parameters())),
+                               args)
 
     def forward(self, tokens=None, embeds=None, mrope_positions=None,
                 build_cache_len=None, last_logit_only=False):
@@ -241,12 +274,13 @@ class Transformer(nn.Module):
         cache being built, each block is checkpointed: its activations are
         recomputed in the backward pass instead of kept."""
         cfg = self.cfg
+        embed, final_norm, unembed = self._top_weights()
         if embeds is None:
             # embed[tokens]'s values; its backward is the embedding-gradient
             # kernel, not the indexing one
-            x = F.embedding(tokens, self.embed)
+            x = F.embedding(tokens, embed)
         else:
-            x = embeds.to(self.embed.dtype)
+            x = embeds.to(embed.dtype)
         B, S = x.shape[:2]
         positions = torch.arange(S, device=x.device).expand(B, S)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -255,17 +289,18 @@ class Transformer(nn.Module):
                  and build_cache_len is None)
         for blk in self.layers:
             if remat:
-                x, aux, c = checkpoint(blk, x, cfg, positions, None,
-                                       mrope_positions, use_reentrant=False)
+                x, aux, c = checkpoint(self._block, blk, x, cfg, positions,
+                                       None, mrope_positions,
+                                       use_reentrant=False)
             else:
-                x, aux, c = blk(x, cfg, positions, build_cache_len,
-                                mrope_positions)
+                x, aux, c = self._block(blk, x, cfg, positions,
+                                        build_cache_len, mrope_positions)
             aux_total = aux_total + aux
             caches.append(c)
-        x = _norm(x, self.final_norm, cfg)
+        x = _norm(x, final_norm, cfg)
         if last_logit_only:
             x = x[:, -1:]
-        logits = x @ self.unembed_weight()
+        logits = x @ unembed
         if build_cache_len is not None:
             return logits, aux_total, caches
         return logits, aux_total
@@ -342,9 +377,9 @@ def param_count(model) -> int:
 def cross_entropy(logits, labels, mask=None):
     """Mean token-level cross entropy of logits (..., V) against int
     ``labels`` (...): logsumexp minus the gold logit, in fp32 whatever the
-    logits' dtype; with ``mask`` the mean over its nonzero weights (at
-    least 1), as the reference."""
-    logits = logits.float()
+    logits' dtype (float64 logits stay float64); with ``mask`` the mean
+    over its nonzero weights (at least 1), as the reference."""
+    logits = stat(logits)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = lse - gold

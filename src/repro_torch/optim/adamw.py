@@ -32,8 +32,10 @@ class AdamWConfig:
 
 
 def init(params: dict) -> dict:
-    """Zero fp32 ``m`` and ``v`` beside each parameter, and count 0."""
-    f32 = lambda t: torch.zeros(t.shape, dtype=torch.float32, device=t.device)
+    """Zero fp32 ``m`` and ``v`` beside each parameter (placed as it is,
+    for a DTensor), and count 0."""
+    f32 = lambda t: torch.zeros_like(t, dtype=torch.float32,
+                                     memory_format=torch.contiguous_format)
     dev = next(iter(params.values())).device
     return {"m": {n: f32(p) for n, p in params.items()},
             "v": {n: f32(p) for n, p in params.items()},
@@ -47,13 +49,17 @@ def global_norm(tree: dict) -> torch.Tensor:
 
 
 @torch.no_grad()
-def update(grads: dict, state: dict, params: dict, cfg: AdamWConfig) -> dict:
+def update(grads: dict, state: dict, params: dict, cfg: AdamWConfig,
+           gnorm=None) -> dict:
     """One AdamW step of ``params`` by ``grads``, in place (module
-    docstring); returns ``{"grad_norm", "lr"}``."""
+    docstring); returns ``{"grad_norm", "lr"}``.  ``gnorm`` replaces
+    ``global_norm(grads)`` where the trees are this rank's shards
+    (``distributed/sharding.py::global_norm``)."""
     count = state["count"] + 1
     lr = cfg.lr(count) if callable(cfg.lr) else cfg.lr
 
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
 
     b1c = 1.0 - cfg.b1 ** count.to(torch.float32)

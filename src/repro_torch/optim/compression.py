@@ -22,12 +22,16 @@ import torch.distributed as dist
 
 
 @torch.no_grad()
-def quantized_psum_mean(grads: dict, error: dict, group=None, bits: int = 8):
+def quantized_psum_mean(grads: dict, error: dict, group=None, bits: int = 8,
+                        scale_groups=()):
     """Compressed mean of a gradient tree over the ranks of ``group``.
 
     Returns (the mean tree, each leaf in its gradient's dtype; the new
     fp32 residual tree).  Every rank of the group must call it with trees
-    of the same names and shapes.
+    of the same names and shapes.  Where the trees hold shards (the
+    sharded step), ``scale_groups`` are the groups of the mesh's other
+    axes: ``amax`` is taken over them too, so each tensor keeps one scale,
+    as the reference's.
     """
     qmax = float(2 ** (bits - 1) - 1)
     n = dist.get_world_size(group)
@@ -35,7 +39,8 @@ def quantized_psum_mean(grads: dict, error: dict, group=None, bits: int = 8):
     for name, g in grads.items():
         x = g.float() + error[name]
         amax = torch.amax(torch.abs(x)).reshape(1)
-        dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+        for g_ in (group, *scale_groups):
+            dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=g_)
         scale = torch.clamp(amax[0], min=1e-12) / qmax      # shared scale
         q = torch.clamp(torch.round(x / scale), -qmax, qmax)
         # int8 values; an int32 sum cannot overflow below 2^23 ranks
@@ -47,6 +52,9 @@ def quantized_psum_mean(grads: dict, error: dict, group=None, bits: int = 8):
 
 
 def init_error(params: dict) -> dict:
-    """This rank's zero fp32 residual beside each parameter."""
-    return {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    """This rank's zero fp32 residual beside each parameter (placed as it
+    is, for a DTensor: the residual of this rank's shard; its copies along
+    "pod" differ, each pod keeping its own, as the reference's)."""
+    return {n: torch.zeros_like(p, dtype=torch.float32,
+                                memory_format=torch.contiguous_format)
             for n, p in params.items()}

@@ -14,21 +14,34 @@ fp32 buffers (autograd's ``.grad`` would sum them in the parameter's
 dtype), so activation memory scales with the microbatch; loss, aux and
 gradients are averaged over the microbatches.
 
-With a mesh (``launch/mesh.py``) every rank is handed the same global
-batch and takes its own rows: rank (pod p, data d) of an (n_pod, n_data)
-mesh the rows of slice ``p * n_data + d`` of ``n_pod * n_data``, the
-reference's ``P("pod", "data")`` layout.  Parameters are replicated.
-Gradients are averaged exactly in fp32 over ``"data"``, then over
-``"pod"``, where ``grad_compression`` swaps the exact mean for
-error-feedback int8 (``optim/compression.py``; the step expects
-``opt_state["error"]`` from ``compression.init_error``).  Loss and aux
-are averaged over every rank.
+With a mesh (``launch/mesh.py``; axes among ``"pod"``, ``"data"``,
+``"model"``) every rank is handed the same global batch and, of each
+microbatch, takes its own rows: rank (pod p, data d) of an (n_pod,
+n_data) mesh the rows of slice ``p * n_data + d`` of ``n_pod * n_data``,
+the reference's ``P(("pod", "data"))`` layout.  Ranks along ``"model"``
+take the same rows (they do not split the batch).  The step runs inside
+``mesh_context(mesh)``, so MoE balance terms see the whole batch.  Loss
+and aux are averaged over every rank.
+
+The parameters must be DTensors on the mesh (``distributed/sharding.py::
+shard_model``; ``Trainer(mesh=...)`` makes them so): each block runs on
+its weights gathered to full, and the backward returns each gradient to
+its shard, averaged over ``"data"`` (``sharding`` module docstring).
+Gradients, AdamW's ``m`` and ``v`` (``adamw.init`` of the sharded
+parameters) and the residual of ``grad_compression`` are DTensors placed
+like their parameter.  The gradients are then averaged over ``"pod"``,
+exactly or, with ``grad_compression``, by error-feedback int8
+(``optim/compression.py``; the step expects ``opt_state["error"]`` from
+``compression.init_error``), and AdamW runs on each rank's shards, with
+the global gradient norm summed over the mesh.
 """
 from __future__ import annotations
 
 import torch
 import torch.distributed as dist
 
+from ..distributed import sharding
+from ..launch.mesh import mesh_context
 from ..models.transformer import cross_entropy
 from ..optim import adamw, compression
 
@@ -63,15 +76,20 @@ def _grads(loss_fn, model, batch):
     return grads, loss.detach(), aux.detach()
 
 
-def _grads_microbatched(loss_fn, model, batch, num_microbatches: int):
+def _grads_microbatched(loss_fn, model, batch, num_microbatches: int,
+                        rows=None):
+    """(grads, loss, aux) averaged over the microbatches; ``rows`` maps a
+    (micro)batch to this rank's rows of it."""
+    take = rows or (lambda b: b)
     if num_microbatches <= 1:
-        return _grads(loss_fn, model, batch)
+        return _grads(loss_fn, model, take(batch))
     mb = next(iter(batch.values())).shape[0] // num_microbatches
-    g_acc = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    g_acc = {n: torch.zeros_like(p, dtype=torch.float32,
+                                 memory_format=torch.contiguous_format)
              for n, p in model.named_parameters()}
     l_acc = a_acc = 0.0
     for i in range(num_microbatches):
-        part = {k: t[i * mb:(i + 1) * mb] for k, t in batch.items()}
+        part = take({k: t[i * mb:(i + 1) * mb] for k, t in batch.items()})
         g, loss, aux = _grads(loss_fn, model, part)
         for n, t in g.items():
             g_acc[n].add_(t)
@@ -82,17 +100,13 @@ def _grads_microbatched(loss_fn, model, batch, num_microbatches: int):
 
 
 def _mesh_axes(mesh) -> dict:
-    """{axis: size} of ``mesh``; raises for what this step cannot run."""
+    """{axis: size} of ``mesh``; raises for an axis this step does not
+    know."""
     axes = dict(zip(mesh.mesh_dim_names, mesh.shape))
     unknown = set(axes) - set(MESH_AXES)
     if unknown:
         raise ValueError(f"mesh axes {sorted(unknown)} are not among "
                          f"{MESH_AXES}")
-    if axes.get("model", 1) > 1:
-        raise NotImplementedError(
-            "a 'model' mesh axis wider than 1 needs the sharded train step "
-            "(distributed/sharding.py), which comes with ROADMAP item 12's "
-            "next slice; this step runs 'pod' and 'data' axes")
     return axes
 
 
@@ -134,30 +148,50 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
     axes = _mesh_axes(mesh) if mesh is not None else {}
     if grad_compression and "pod" not in axes:
         raise ValueError("grad_compression needs a mesh with a 'pod' axis")
+    dp_axes = ("data",) if grad_compression else ("pod", "data")
+
+    def sharded_update(grads, opt_state, params):
+        local = {n: g.to_local() for n, g in grads.items()}
+        if "pod" in axes and grad_compression:
+            error = {n: e.to_local() for n, e in opt_state["error"].items()}
+            local, err = compression.quantized_psum_mean(
+                local, error, mesh.get_group("pod"),
+                scale_groups=[mesh.get_group(a) for a in axes if a != "pod"])
+            for n, e in err.items():
+                error[n].copy_(e)            # the DTensors' own storage
+        elif "pod" in axes:
+            local = _mean(local, mesh.get_group("pod"))
+        state = {"m": {n: t.to_local() for n, t in opt_state["m"].items()},
+                 "v": {n: t.to_local() for n, t in opt_state["v"].items()},
+                 "count": opt_state["count"]}
+        metrics = adamw.update(
+            local, state, {n: p.to_local() for n, p in params.items()},
+            opt_cfg, gnorm=sharding.global_norm(local, params))
+        opt_state["count"] = state["count"]
+        return metrics
 
     def step(model, opt_state, batch):
         model.requires_grad_(True)
-        if mesh is not None:
-            batch = _local_rows(batch, mesh, axes)
-        grads, loss, aux = _grads_microbatched(loss_fn, model, batch,
-                                               num_microbatches)
-        if "data" in axes:
-            grads = _mean(grads, mesh.get_group("data"))
-        if "pod" in axes:
-            group = mesh.get_group("pod")
-            if grad_compression:
-                grads, opt_state["error"] = compression.quantized_psum_mean(
-                    grads, opt_state["error"], group)
-            else:
-                grads = _mean(grads, group)
-        if axes:
-            stats = torch.stack([loss, aux]).float()
-            for axis in axes:
-                stats = _mean({"s": stats}, mesh.get_group(axis))["s"]
-            loss, aux = stats[0], stats[1]
-        metrics = adamw.update(grads, opt_state,
-                               dict(model.named_parameters()), opt_cfg)
-        metrics.update(loss=loss, aux_loss=aux)
+        params = dict(model.named_parameters())
+        if mesh is None:
+            grads, loss, aux = _grads_microbatched(loss_fn, model, batch,
+                                                   num_microbatches)
+            metrics = adamw.update(grads, opt_state, params, opt_cfg)
+            metrics.update(loss=loss, aux_loss=aux)
+            return metrics
+        if not sharding.is_sharded(model):
+            raise ValueError("a mesh needs the model's parameters placed on "
+                             "it: distributed.sharding.shard_model(model, "
+                             "mesh)")
+        with mesh_context(mesh, dp_axes):
+            grads, loss, aux = _grads_microbatched(
+                loss_fn, model, batch, num_microbatches,
+                rows=lambda b: _local_rows(b, mesh, axes))
+        metrics = sharded_update(grads, opt_state, params)
+        stats = torch.stack([loss, aux]).float()
+        for axis in axes:
+            stats = _mean({"s": stats}, mesh.get_group(axis))["s"]
+        metrics.update(loss=stats[0], aux_loss=stats[1])
         return metrics
 
     return step

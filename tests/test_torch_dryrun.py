@@ -1,0 +1,180 @@
+"""The port's shapes table, roofline and dry-run against the JAX package's,
+on the CPU, with no device and no process group.
+
+Held against JAX: ``all_cells`` over the two registries (40 cells and
+their statuses), ``active_params`` and ``model_flops`` for every arch,
+``measured_kernel_table`` on the reference test's stats
+(``tests/test_obs.py:321``), and, on the four reduced cells of the
+reference's ``test_dryrun_lowering_path`` (``tests/test_distributed.py:
+139-153``) over (2, 2, 2) mesh sizes, each record's per-rank parameter
+bytes against the bytes JAX's ``param_specs`` and ``eval_shape`` give.
+The port alone: the whole dry-run over all 40 cells x {single, multi} on
+meta, and its CLI writing and resuming a JSONL.
+"""
+import dataclasses
+import json
+import math
+
+import jax
+import pytest
+import torch.distributed as dist
+from jax.sharding import AbstractMesh
+
+from repro.configs import shapes as jshapes
+from repro.distributed.sharding import param_specs as jparam_specs
+from repro.models import registry as jregistry
+from repro.models import transformer as JT
+from repro.roofline import analysis as janalysis
+from repro_torch.configs import shapes
+from repro_torch.distributed.sharding import param_specs
+from repro_torch.launch import dryrun
+from repro_torch.models import registry
+from repro_torch.roofline import analysis, hardware
+
+REDUCED_CELLS = [("train", "qwen3-8b"), ("prefill", "deepseek-moe-16b"),
+                 ("decode", "hymba-1.5b"), ("decode", "xlstm-1.3b")]
+MESH = {"pod": 2, "data": 2, "model": 2}
+
+
+def _registry(reg):
+    return {a: reg.get_config(a) for a in reg.list_archs()}
+
+
+def test_all_cells_match_jax():
+    got = shapes.all_cells(_registry(registry))
+    want = jshapes.all_cells(_registry(jregistry))
+    assert len(got) == 40 and got == want
+    assert ({n: dataclasses.astuple(s) for n, s in shapes.SHAPES.items()}
+            == {n: dataclasses.astuple(s) for n, s in jshapes.SHAPES.items()})
+
+
+@pytest.mark.parametrize("arch", registry.list_archs())
+def test_active_params_and_model_flops_match_jax(arch):
+    cfg, jcfg = registry.get_config(arch), jregistry.get_config(arch)
+    assert analysis.active_params(cfg) == janalysis.active_params(jcfg)
+    for kind in ("train", "serve"):
+        assert (analysis.model_flops(cfg, 4096 * 256, kind)
+                == janalysis.model_flops(jcfg, 4096 * 256, kind))
+
+
+def test_measured_kernel_table_matches_reference():
+    stats = {
+        "_flush_impl": {"count": 4, "wall_s": 2.0, "bytes": 8_190_000_000},
+        "_insert_impl": {"count": 100, "wall_s": 0.1, "bytes": 1_000_000},
+    }
+    assert (analysis.measured_kernel_table(stats, peak_bw=819e9)
+            == janalysis.measured_kernel_table(stats, peak_bw=819e9))
+    sxm = hardware.H100[hardware.PLANNED]["hbm_bw"]
+    assert (analysis.measured_kernel_table(stats)
+            == janalysis.measured_kernel_table(stats, peak_bw=sxm))
+    zero = analysis.measured_kernel_table({"k": {"count": 1, "wall_s": 0.0,
+                                                 "bytes": 10}})
+    assert zero[0]["achieved_gb_s"] == 0.0
+
+
+def _jax_param_bytes_per_rank(jcfg) -> float:
+    shapes_ = jax.eval_shape(lambda: JT.init_params(jax.random.PRNGKey(0),
+                                                    jcfg))
+    specs = jparam_specs(shapes_, AbstractMesh(tuple(MESH.values()),
+                                               tuple(MESH)))
+    total = 0.0
+    for leaf, spec in zip(jax.tree_util.tree_leaves(shapes_),
+                          jax.tree_util.tree_leaves(
+                              specs, is_leaf=lambda s: isinstance(
+                                  s, jax.sharding.PartitionSpec))):
+        k = math.prod(MESH[a] for a in spec if a is not None)
+        total += leaf.size * leaf.dtype.itemsize / k
+    return total
+
+
+@pytest.mark.parametrize("kind,arch", REDUCED_CELLS)
+def test_lower_cell_on_reduced_cells(kind, arch):
+    cfg = registry.get_config(arch).reduced()
+    sp = shapes.ShapeSpec("t", 64 if kind != "prefill" else 128,
+                          8 if kind != "prefill" else 4, kind)
+    rec = dryrun.lower_cell(arch, kind, MESH, cfg=cfg, shape=sp)
+    assert rec["status"] == "ok", rec
+    assert not dist.is_initialized()
+    assert rec["n_devices"] == 8 and rec["mesh"] == "2x2x2"
+    assert rec["plan"] == (dryrun.PLAN if kind == "train"
+                           else dryrun.SERVE_PLAN)
+    per_rank = rec["per_rank_bytes"]
+    assert per_rank["params"] == _jax_param_bytes_per_rank(
+        jregistry.get_config(arch).reduced())
+    assert per_rank["total"] == pytest.approx(
+        sum(v for k, v in per_rank.items() if k != "total"))
+    assert ("opt_m_v" in per_rank) == (kind == "train")
+    assert ("cache" in per_rank) == (kind != "train")
+    r = rec["roofline"]
+    assert r["flops_per_dev"] > 0 and r["t_memory"] > 0
+    assert r["t_collective"] > 0 and r["by_kind"]["all-gather"]["count"] > 0
+    assert ("reduce-scatter" in r["by_kind"]) == (kind == "train")
+    assert rec["fits"] is True
+
+
+def test_plan_collective_bytes_counts_the_plan():
+    """A (2, 2) data x model mesh on one node, qwen3-8b reduced: the
+    forward's and the recompute's gathers, and per weight a
+    reduce-scatter over "data" where it is sharded there."""
+    cfg = registry.get_config("qwen3-8b").reduced()
+    sizes = {"data": 2, "model": 2}
+    train = analysis.plan_collective_bytes(cfg, sizes, "train")
+    serve = analysis.plan_collective_bytes(cfg, sizes, "decode")
+    assert train["net"] == serve["net"] == 0.0      # 4 ranks, one node
+    gathers = serve["by_kind"]["all-gather"]
+    assert train["by_kind"]["all-gather"]["bytes"] > gathers["bytes"]
+    assert "reduce-scatter" not in serve["by_kind"]
+    specs = param_specs({n: shape for n, (shape, _) in
+                         analysis.param_shapes(cfg).items()}, sizes)
+    n_data = sum("data" in s for s in specs.values())
+    assert train["by_kind"]["reduce-scatter"]["count"] == n_data
+    assert analysis.fabric({"pod": 2, "data": 16, "model": 16},
+                           "model") == "net"
+    assert analysis.fabric({"data": 2, "model": 4}, "model") == "nvlink"
+
+
+def test_dryrun_all_cells_on_meta(tmp_path, capsys):
+    """All 40 cells x {single, multi}: the statuses of ``all_cells``, and
+    every ``run`` cell ``ok`` with per-rank bytes and the three terms;
+    a second run resumes and writes nothing."""
+    out = tmp_path / "d.jsonl"
+    recs = dryrun.main(["--all", "--mesh", "both", "--out", str(out)])
+    assert not dist.is_initialized()
+    assert len(recs) == 80
+    lines = [json.loads(x) for x in out.read_text().splitlines()]
+    assert lines == json.loads(json.dumps(recs))
+    want = shapes.all_cells(_registry(registry))
+    for kind in ("single", "multi"):
+        got = [(r["arch"], r["shape"], r["status"]) for r in recs
+               if r["mesh_kind"] == kind]
+        assert [(a, s) for a, s, _ in got] == [(a, s) for a, s, _ in want]
+        for (_, _, status), (_, _, w) in zip(got, want):
+            assert status == ("ok" if w == "run" else w)
+    for r in recs:
+        if r["status"] == "ok":
+            assert r["n_devices"] == (256 if r["mesh_kind"] == "single"
+                                      else 512)
+            assert r["per_rank_bytes"]["total"] > 0
+            assert r["hbm_bytes"] == 80e9
+            assert {"t_compute", "t_memory", "t_collective"} <= set(
+                r["roofline"])
+    assert dryrun.main(["--all", "--mesh", "both", "--out", str(out)]) == []
+    assert len(out.read_text().splitlines()) == 80
+    assert "qwen3-8b x train_4k: ok" in capsys.readouterr().out
+
+
+def test_dryrun_cli_writes_and_resumes(tmp_path):
+    out = tmp_path / "one.jsonl"
+    first = dryrun.main(["--arch", "qwen3-8b", "--shape", "decode_32k",
+                         "--mesh", "single", "--kv-int8", "--out", str(out)])
+    assert [r["status"] for r in first] == ["ok"]
+    assert first[0]["mesh_kind"] == "single" and first[0]["mesh"] == "16x16"
+    plain = dryrun.lower_cell("qwen3-8b", "decode_32k",
+                              {"data": 16, "model": 16})
+    # int8 K/V with fp32 scales: under half the bf16 cache
+    assert (first[0]["per_rank_bytes"]["cache"]
+            < plain["per_rank_bytes"]["cache"] * 0.6)
+    more = dryrun.main(["--arch", "qwen3-8b", "--shape", "decode_32k",
+                        "--mesh", "both", "--out", str(out)])
+    assert [r["mesh_kind"] for r in more] == ["multi"]
+    assert len(out.read_text().splitlines()) == 2

@@ -425,7 +425,13 @@ def test_port_imports_neither_jax_nor_repro():
             "src/repro_torch/train/trainer.py",
             "src/repro_torch/data/pipeline.py",
             "src/repro_torch/launch/mesh.py",
-            "src/repro_torch/launch/train.py"} <= scanned
+            "src/repro_torch/launch/train.py",
+            "src/repro_torch/launch/dryrun.py",
+            "src/repro_torch/distributed/sharding.py",
+            "src/repro_torch/distributed/fault_tolerance.py",
+            "src/repro_torch/configs/shapes.py",
+            "src/repro_torch/roofline/hardware.py",
+            "src/repro_torch/roofline/analysis.py"} <= scanned
     for path in files:
         for mod in _imports(path):
             top = mod.split(".")[0]

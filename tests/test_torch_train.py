@@ -6,9 +6,9 @@ AdamW state) carried across by ``models/convert.py``.  Held against JAX:
 schedules; ``adamw.update`` on fp32 and bf16 trees with clipping active;
 the loss and every gradient of ``make_loss_fn`` for qwen3-8b, the MoE
 archs (deepseek-moe-16b; mixtral-8x22b, ``moe_swa``), the mLSTM/sLSTM
-arch (xlstm-1.3b), MLA (minicpm3-4b) and the hybrid Mamba blocks
-(hymba-1.5b) reduced (loss within 1e-5, gradients within rtol 1e-4 and
-atol 1e-5), and its encoder
+arch (xlstm-1.3b, all 18 reduced layers in float64), MLA (minicpm3-4b)
+and the hybrid Mamba blocks (hymba-1.5b) reduced (loss within 1e-5,
+gradients within rtol 1e-4 and atol 1e-5), and its encoder
 branch (hubert-xlarge reduced, ``embeds``/``labels``); two
 ``make_train_step`` steps and one with ``num_microbatches=4`` (params,
 ``m`` and ``v`` within atol 2e-5, the reference's own sharded-vs-single
@@ -17,16 +17,20 @@ bit; ``quantized_psum_mean`` for two pods against JAX's under
 ``jax.vmap(..., axis_name="pod")``, a compressed step over a 2-rank
 ``gloo`` group against JAX's exact step (the reference test's bounds,
 ``tests/test_distributed.py:118-122``) and an exact step over a 2-rank
-"data" axis against it.  The port alone: ``remat="layer"`` against
-``"none"``, a checkpoint restart against an uninterrupted run (bit for
-bit), the CLI, and that serving builds no graph over a model whose
+"data" axis against it (replicated parameters; the sharded step is in
+``tests/test_torch_distributed.py``).  The port alone: ``remat="layer"``
+against ``"none"``, a checkpoint restart against an uninterrupted run
+(bit for bit), the CLI (``--mesh`` outside its world exits naming the
+ranks it needs), and that serving builds no graph over a model whose
 parameters require grad.
 """
+import contextlib
 import dataclasses
 import datetime
 import multiprocessing
 import os
 import time
+import types
 
 import jax
 import jax.numpy as jnp
@@ -35,7 +39,9 @@ import pytest
 import torch
 
 from repro.data import pipeline as jpipe
+from repro.models import layers as jlayers
 from repro.models import registry as jregistry
+from repro.models import ssm as jssm
 from repro.models import transformer as JT
 from repro.optim import adamw as jadamw
 from repro.optim import compression as jcomp
@@ -58,7 +64,7 @@ LR = 1e-3
 
 def _reduced(reg, arch, **kw):
     return dataclasses.replace(reg.get_config(arch).reduced(),
-                               dtype="float32", remat="none", **kw)
+                               **{"dtype": "float32", "remat": "none", **kw})
 
 
 def _pair(arch, seed=0, **kw):
@@ -83,8 +89,8 @@ def _named(tree, cfg):
 def _check_tree(jax_named, torch_named, atol, rtol=0.0):
     assert set(jax_named) == set(torch_named)
     for name, want in jax_named.items():
-        got = torch_named[name].detach().float().numpy()
-        np.testing.assert_allclose(got, np.asarray(want, np.float32),
+        got = torch_named[name].detach().double().numpy()
+        np.testing.assert_allclose(got, np.asarray(want, np.float64),
                                    atol=atol, rtol=rtol, err_msg=name)
 
 
@@ -197,30 +203,66 @@ def _torch_grads(tcfg, model, batch):
         for n, p, g in zip(names, params, gs)}
 
 
-#: xlstm-1.3b reduced keeps its 12 segments (18 layers); through that
-#: many exponential-gated recurrences each fp32 package's embedding
-#: gradient (max 2.9) lies ~1.4e-4 from a float64 run's, so the stack is
-#: cut to one mlstm segment and one slstm layer, where the bounds below
-#: measure the port and not fp32 rounding.  hymba-1.5b is cut to one
-#: layer of each hybrid kind for time (its 7 reduced layers agree too)
-CUTS = {"xlstm-1.3b": dict(n_layers=3, segments=(("mlstm", 2), ("slstm", 1))),
-        "hymba-1.5b": dict(n_layers=2, segments=(("hybrid_global", 1),
+#: hymba-1.5b is cut to one layer of each hybrid kind for time (its 7
+#: reduced layers agree too)
+CUTS = {"hymba-1.5b": dict(n_layers=2, segments=(("hybrid_global", 1),
                                                  ("hybrid", 1)))}
+#: archs compared in float64.  xlstm-1.3b reduced keeps its 12 segments
+#: (18 layers); through that many exponential-gated recurrences each fp32
+#: package's embedding gradient (max 2.9) lies ~1.4e-4 from a float64
+#: run's, so in fp32 the bounds below would measure rounding, not the
+#: port.  Both packages run the whole stack in float64 instead: the port
+#: as a float64 model (``models/layers.py::stat`` keeps its statistics and
+#: states in float64), JAX under ``jax.enable_x64`` (``_jax_float64``).
+FLOAT64 = ("xlstm-1.3b",)
+
+
+class _Float64Pins:
+    """``jax.numpy`` with ``float32`` read as ``float64``."""
+
+    def __getattr__(self, name):
+        return jnp.float64 if name == "float32" else getattr(jnp, name)
+
+
+def _jax_float64(monkeypatch):
+    """``jax.enable_x64`` for a float64 reference run.  The reference pins
+    its gates, states, norm statistics and loss to ``jnp.float32``
+    (``models/ssm.py``, ``layers.py``, ``transformer.py``) and cannot trace
+    xLSTM under x64 at all: ``np.sqrt(dk)`` is a float64 scalar that
+    promotes the mLSTM scan's carry past its float32 initial state.  For
+    the test's duration those modules see ``jnp.float32`` as float64 and
+    that square root as a Python float; no file of the reference
+    changes."""
+    for mod in (jssm, jlayers, JT):
+        monkeypatch.setattr(mod, "jnp", _Float64Pins())
+    monkeypatch.setattr(jssm, "np", types.SimpleNamespace(
+        sqrt=lambda x: float(np.sqrt(x))))
+    return jax.enable_x64(True)
 
 
 @pytest.mark.parametrize("arch", ["qwen3-8b", "deepseek-moe-16b",
                                   "xlstm-1.3b", "mixtral-8x22b",
                                   "minicpm3-4b", "hymba-1.5b"])
-def test_loss_and_grads_match_jax(arch):
-    jcfg, tcfg, params, model = _pair(arch, **CUTS.get(arch, {}))
-    toks = _tokens(jcfg)
-    lj, aj, gj = _jax_grads(jcfg, params, {"tokens": jnp.asarray(toks)})
+def test_loss_and_grads_match_jax(arch, monkeypatch):
+    kw = dict(CUTS.get(arch, {}))
+    ctx = contextlib.nullcontext()
+    if arch in FLOAT64:
+        kw["dtype"] = "float64"
+        ctx = _jax_float64(monkeypatch)
+    with ctx:
+        jcfg, tcfg, params, model = _pair(arch, **kw)
+        toks = _tokens(jcfg)
+        lj, aj, gj = _jax_grads(jcfg, params, {"tokens": jnp.asarray(toks)})
+        gj = _named(gj, jcfg)
     lt, at, gt = _torch_grads(tcfg, model, {"tokens": torch.from_numpy(toks)})
+    if arch in FLOAT64:
+        assert all(t.dtype == torch.float64 for t in gt.values())
+        assert all(a.dtype == np.float64 for a in gj.values())
     assert abs(lt - lj) < 1e-5
     assert abs(at - aj) < 1e-5
     if jcfg.n_experts:
         assert aj > 0                 # the balance term enters the loss
-    _check_tree(_named(gj, jcfg), gt, atol=1e-5, rtol=1e-4)
+    _check_tree(gj, gt, atol=1e-5, rtol=1e-4)
 
 
 def test_encoder_loss_branch_matches_jax():
@@ -338,12 +380,19 @@ def test_named_mapping_and_opt_state_round_trip():
 
 
 def test_step_refuses_what_it_cannot_run():
+    """A mesh with a "model" axis builds a step (the sharded step runs
+    it); an axis the step does not know, and compression without a pod
+    axis, are refused."""
     cfg = _reduced(registry, "qwen3-8b")
     opt_cfg = adamw.AdamWConfig()
-    mesh = type("Mesh", (), {"mesh_dim_names": ("data", "model"),
-                             "shape": (1, 2)})()
-    with pytest.raises(NotImplementedError, match="next slice"):
-        tts.make_train_step(cfg, opt_cfg, mesh=mesh)
+
+    def mesh(names, shape):
+        return type("Mesh", (), {"mesh_dim_names": names, "shape": shape})()
+
+    assert callable(tts.make_train_step(cfg, opt_cfg,
+                                        mesh=mesh(("data", "model"), (1, 2))))
+    with pytest.raises(ValueError, match="not among"):
+        tts.make_train_step(cfg, opt_cfg, mesh=mesh(("data", "seq"), (1, 2)))
     with pytest.raises(ValueError, match="pod"):
         tts.make_train_step(cfg, opt_cfg, grad_compression=True)
 
@@ -372,9 +421,12 @@ def test_pipeline_matches_jax():
 def _rank_main(rank, store_path, out_dir, params_np, toks, qgrads, qerrs):
     """One of two ranks: ``quantized_psum_mean`` on this rank's tree, a
     compressed step over a ("pod",) mesh and an exact one over a
-    ("data",) mesh, each from the same weights; writes its results."""
+    ("data",) mesh, each from the same weights placed on its mesh
+    (``shard_model``: replicated over "pod", sharded over "data");
+    writes its results."""
     import torch.distributed as dist
 
+    from repro_torch.distributed.sharding import full_state, shard_model
     from repro_torch.launch.mesh import make_mesh
 
     torch.set_num_threads(1)
@@ -395,7 +447,7 @@ def _rank_main(rank, store_path, out_dir, params_np, toks, qgrads, qerrs):
         for kind, mesh in (("comp", pod),
                            ("data", make_mesh((2,), ("data",),
                                               device_type="cpu"))):
-            model = params_from_reference(params_np, cfg)
+            model = shard_model(params_from_reference(params_np, cfg), mesh)
             params = dict(model.named_parameters())
             opt = adamw.init(params)
             if kind == "comp":
@@ -405,10 +457,11 @@ def _rank_main(rank, store_path, out_dir, params_np, toks, qgrads, qerrs):
                                        mesh=mesh)
             m = step(model, opt, batch)
             out[f"{kind}.loss"] = m["loss"].numpy()
-            out.update({f"{kind}.p.{n}": p.detach().numpy()
-                        for n, p in params.items()})
+            out.update({f"{kind}.p.{n}": t.numpy()
+                        for n, t in full_state(params).items()})
             if kind == "comp":
-                out.update({f"comp.err.{n}": e.numpy()
+                # each rank's own residual (replicated placement: no gather)
+                out.update({f"comp.err.{n}": e.to_local().numpy()
                             for n, e in opt["error"].items()})
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
     finally:
@@ -557,12 +610,20 @@ def test_train_cli_on_cpu(capsys):
 
 @pytest.mark.parametrize("flags", [["--mesh", "single"], ["--mesh", "multi"],
                                    ["--grad-compression"]])
-def test_train_cli_refuses_what_needs_a_mesh(flags):
+def test_train_cli_refuses_what_needs_a_mesh(flags, monkeypatch):
+    """Outside a 256- or 512-rank world, ``--mesh single|multi`` exits
+    naming the rank count it needs; compression without a pod axis
+    exits."""
     from repro_torch.launch.train import main
 
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     with pytest.raises(SystemExit) as e:
         main(["--arch", "qwen3-8b", "--reduced", "--device", "cpu", *flags])
     assert e.value.code != 0
+    if flags[0] == "--mesh":
+        need = {"single": 256, "multi": 512}[flags[1]]
+        assert f"needs {need} ranks" in str(e.value.code)
+        assert "this world has 1" in str(e.value.code)
 
 
 # ---------------------------------------------- serving stays inference
