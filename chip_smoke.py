@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (the NB-tree device tier, durable and
 multi-tenant ingest over it, the paged-KV serving bridge, every arch of
-the model code, training and its sharded step) on one NVIDIA card.
+the model code, training and its sharded step, split over "model") on
+one NVIDIA card.
 
 Run from the repository root (needs one CUDA card, the CUDA toolkit and no
 network)::
@@ -119,6 +120,28 @@ network)::
    stats time the host's enqueue, so they bound no device rate).  Sharded steps
    over two or more ranks need a card a rank: the CPU tests run them over
    ``gloo`` (``tests/test_torch_distributed.py``).
+12. (Runs after phase 11.)  The sharded step split over ``"model"``
+   (tensor and expert parallelism: heads, hidden units, experts, vocab);
+   no kernel of phase 1 is on this path, and every rank's launch counts
+   must be 0.  NCCL takes one rank a card, so two ranks run on the one
+   card in two spawned processes over a ``gloo`` group (``tcp://
+   127.0.0.1``), mesh (data, model) = (1, 2); their collectives of CUDA
+   tensors go through host copies (stated in the phase's output), the
+   compute stays on the card.  12a: gemma-2b at full width, depth cut to
+   4 of 18 layers; 12b: deepseek-moe-16b at full width, depth cut to 3 of
+   28 (1 dense + 2 MoE); both bf16, remat "layer", 2 steps of 4 x 1,024
+   random tokens: losses finite and equal on both ranks; prints each
+   rank's step times, peak device memory, parameters held, and the bytes
+   it moved by collective and axis (``sharding.wire_counts``; gathered
+   along "model" only gemma's one KV head), beside the card's name and
+   power limit (two ranks share the card's SMs: the times are recorded,
+   not compared as a speed).  12c: both archs at 2 layers in fp32 (TF32
+   off), one step of 2 x 256 tokens split over the two ranks against the
+   one-rank replicated step that each rank runs beside on the same
+   weights and batch: the loss within 1e-4, every gradient (from AdamW's
+   first ``m`` and ``v``) within 10c's fixed ``GRAD_ATOL``, every weight
+   within 2 x LR (each rank holds its own shards against the same pieces
+   of the replicated state).
 6. Durable open-loop ingest with a crash and a restart: ``torch-nbtree``
    at phase 2's shape under ``repro_torch.ingest.IngestFrontend`` with a
    WAL and LSN-keyed snapshots on local disk; a preload of 2^22 keys over
@@ -157,7 +180,8 @@ network)::
    (>= 2^18 pairs) out without a capped range scan.
 
 Kernel launch counters are zeroed just before each path (2-3, 4, the
-measured runs of 8a and 8b, 9a, 10a, 11a, 6, 7) and read just after; every kernel
+measured runs of 8a and 8b, 9a, 10a, 11a, 12a-12b, 6, 7) and read just
+after; every kernel
 must have launched on its own path (the four NB-tree kernels of the write
 side and the point reads on phase 6's too, and those and
 ``range_scan_rows`` on phase 7's; the root merge, the search, the probe
@@ -2723,15 +2747,23 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
+def cut_depth(cfg, depth: int):
+    """``cfg`` with its first ``depth`` layers, segments cut in order."""
+    segs, left = [], depth
+    for kind, count in cfg.segments:
+        if left:
+            segs.append((kind, min(count, left)))
+            left -= segs[-1][1]
+    return dataclasses.replace(cfg, n_layers=depth, segments=tuple(segs))
+
+
 def sharded_config(cfg=None):
     from repro_torch.models import registry
 
     cfg = cfg or registry.get_config(SHARDED["arch"])
     if cfg.n_layers <= SHARDED["layers"]:
         return cfg
-    return dataclasses.replace(cfg, n_layers=SHARDED["layers"],
-                               segments=((cfg.segments[0][0],
-                                          SHARDED["layers"]),))
+    return cut_depth(cfg, SHARDED["layers"])
 
 
 def state_equal(model_a, opt_a, model_b, opt_b) -> bool:
@@ -2936,6 +2968,262 @@ def phase_sharded(dev, args, nbtree_stats, cfg=None) -> dict:
     log("  phase 11 parts took " + ", ".join(f"{k} {v:.1f} s"
                                              for k, v in times.items()))
     return launches
+
+
+# ----------------------------------------------------------------- phase 12
+#: 12a-12b: two ranks on one card over a gloo group, mesh (data, model) =
+#: (1, 2); each arch at full width with its depth cut (bf16, remat
+#: "layer"), 2 steps of 4 x 1,024 random tokens at a constant rate
+TP = dict(ranks=2, batch=4, seq=1024, steps=2, lr=3e-4,
+          depth={"gemma-2b": 4, "deepseek-moe-16b": 3})
+#: 12c: the same archs at 2 layers in fp32 (TF32 off), one step of 2 x 256
+#: tokens, split over the 2 ranks against the one-rank replicated step
+TP_EXACT = dict(depth=2, batch=2, seq=256, lr=1e-3)
+#: 12c's bounds, fixed before the first run: the loss within 1e-4 and
+#: every gradient (read back from AdamW's first m and v) within 10c's
+#: ``GRAD_ATOL``, the reference's own bound between two runs of a step;
+#: every weight within 2 x LR, what one AdamW step can move it (the CPU
+#: tests' bound, ``tests/test_torch_tensor_parallel.py``)
+TP_LOSS_ATOL = 1e-4
+#: bytes by which a step's all-reduces along "model" may differ from the
+#: dry-run's count of them: the scalars (loss, aux, norm, the MoE
+#: fractions) and the loss's last position of each row, uncounted
+TP_PLAN_SLACK = 256
+
+
+def tp_batch(cfg, rows: int, seq: int, seed: int, dev):
+    return {"tokens": torch.from_numpy(np.random.default_rng(seed).integers(
+        1, cfg.vocab, (rows, seq)).astype(np.int64)).to(dev)}
+
+
+def tp_rank(rank, port, out, seed, dev_type, runs, exact, shapes) -> None:
+    """One of phase 12's two ranks (module docstring): ``runs`` are the
+    bf16 configs stepped at ``TP``'s shape, ``exact`` the fp32 ones held
+    against the replicated step at ``TP_EXACT``'s (``shapes``: the
+    parent's two dicts); rank 0 writes the results to ``out``."""
+    TP.update(shapes[0])
+    TP_EXACT.update(shapes[1])
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import init_params, param_count
+    from repro_torch.optim import adamw, schedules
+    from repro_torch.train.train_step import make_train_step
+
+    on_card = dev_type == "cuda"
+    if on_card:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:                  # a CPU rehearsal: nothing to synchronise or read
+        for f in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
+            setattr(torch.cuda, f, lambda *a, **k: None)
+        torch.cuda.max_memory_allocated = lambda *a, **k: 0
+        torch.set_num_threads(2)
+    dev = torch.device(dev_type)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=TP["ranks"], rank=rank)
+    try:
+        mesh = make_mesh((1, TP["ranks"]), ("data", "model"), dev_type)
+        res = {"runs": {}, "exact": {}}
+        t_up = time.perf_counter()
+        ops.reset_launch_counts()
+        for cfg in runs:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            model = sharding.shard_model(init_params(cfg, seed=seed,
+                                                     device=dev), mesh)
+            opt = adamw.init(dict(model.named_parameters()))
+            step = make_train_step(cfg, adamw.AdamWConfig(
+                lr=schedules.constant(TP["lr"])), mesh=mesh)
+            batch = tp_batch(cfg, TP["batch"], TP["seq"], seed, dev)
+            secs, losses = [], []
+            for _ in range(TP["steps"]):
+                torch.cuda.synchronize()
+                sharding.reset_wire_counts()
+                t0 = time.perf_counter()
+                m = step(model, opt, batch)
+                losses.append(float(m["loss"]))
+                secs.append(time.perf_counter() - t0)
+            wire = sharding.wire_counts()
+            res["runs"][cfg.name] = dict(
+                secs=secs, losses=losses, grad_norm=float(m["grad_norm"]),
+                peak=torch.cuda.max_memory_allocated(), wire=wire,
+                local_params=sum(p.to_local().numel()
+                                 for p in model.parameters()),
+                params=param_count(model))
+            del model, opt, step, m
+        res["launches"] = ops.launch_counts()
+        res["times"] = {"12a-12b": time.perf_counter() - t_up}
+        for cfg in exact:
+            gc.collect()
+            torch.cuda.empty_cache()
+            opt_cfg = adamw.AdamWConfig(lr=TP_EXACT["lr"])
+            batch = tp_batch(cfg, TP_EXACT["batch"], TP_EXACT["seq"], seed,
+                             dev)
+            model = sharding.shard_model(init_params(cfg, seed=seed,
+                                                     device=dev), mesh)
+            opt = adamw.init(dict(model.named_parameters()))
+            loss = float(make_train_step(cfg, opt_cfg, mesh=mesh)(
+                model, opt, batch)["loss"])
+            # every rank runs the replicated step beside and holds its own
+            # shards against the same pieces of the replicated state
+            rep = init_params(cfg, seed=seed, device=dev)
+            rep_opt = adamw.init(dict(rep.named_parameters()))
+            rep_loss = float(make_train_step(cfg, opt_cfg)(
+                rep, rep_opt, batch)["loss"])
+            b1, b2 = opt_cfg.b1, opt_cfg.b2
+            diff = {"grad": 0.0, "grad_v": 0.0, "params": 0.0, "gmax": 0.0}
+
+            def mine(full, like):
+                return sharding.shard_tensor(full.detach(), mesh,
+                                             list(like.placements)).to_local()
+
+            for n, p in model.named_parameters():
+                g_rep = mine(rep_opt["m"][n], p).double() / (1 - b1)
+                g_tp = opt["m"][n].to_local().double() / (1 - b1)
+                v_rep = (mine(rep_opt["v"][n], p).double() / (1 - b2)).sqrt()
+                v_tp = (opt["v"][n].to_local().double() / (1 - b2)).sqrt()
+                w_rep = mine(dict(rep.named_parameters())[n], p).double()
+                for k, d in (("grad", g_tp - g_rep), ("grad_v", v_tp - v_rep),
+                             ("params", p.detach().to_local().double()
+                              - w_rep),
+                             ("gmax", g_rep)):
+                    diff[k] = max(diff[k], float(d.abs().max()))
+            res["exact"][cfg.name] = dict(loss=loss, rep_loss=rep_loss, **diff)
+            del model, opt, rep, rep_opt
+        res["times"]["12c"] = time.perf_counter() - t_up - res["times"][
+            "12a-12b"]
+        if rank == 0:
+            Path(out).write_text(json.dumps(res))
+        else:
+            Path(out).with_suffix(".rank1").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(target, n: int, args: tuple, timeout: float) -> None:
+    """``target(rank, *args)`` in ``n`` spawned processes, every join
+    bounded; a rank that hangs or fails fails the phase."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(r, *args)) for r in range(n)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.join(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join(timeout=10)
+    if hung or any(p.exitcode for p in procs):
+        raise AssertionError(f"phase 12: rank exit codes "
+                             f"{[p.exitcode for p in procs]}"
+                             + (" (hung, killed)" if hung else ""))
+
+
+def phase_tp(dev, args, cfgs=None) -> None:
+    """Phase 12 (see the module docstring).  ``cfgs`` = (runs, exact)
+    replaces the configs only to rehearse the phase on the CPU."""
+    from repro_torch.models import registry
+    from repro_torch.roofline import analysis
+
+    t0 = time.perf_counter()
+    if cfgs is None:
+        runs = [cut_depth(registry.get_config(a), d)
+                for a, d in TP["depth"].items()]
+        exact = [dataclasses.replace(cut_depth(registry.get_config(a),
+                                               TP_EXACT["depth"]),
+                                     dtype="float32")
+                 for a in TP["depth"]]
+    else:
+        runs, exact = cfgs
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip() \
+        if dev.type == "cuda" else "no card (CPU rehearsal)"
+    log(f"  12: {TP['ranks']} ranks on one {dev.type} device over a gloo "
+        f"group (tcp://127.0.0.1), mesh (data, model) = (1, {TP['ranks']}); "
+        "collectives of CUDA tensors go through host copies (gloo's "
+        f"transport), compute stays on the device; card: {smi}")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "tp.json"
+        spawn_ranks(tp_rank, TP["ranks"],
+                    (free_port(), str(out), args.seed, dev.type, runs, exact,
+                     (TP, TP_EXACT)), timeout=600)
+        res = json.loads(out.read_text())
+        res1 = json.loads(out.with_suffix(".rank1").read_text())
+    for cfg in runs:
+        r, r1 = res["runs"][cfg.name], res1["runs"][cfg.name]
+        tokens = TP["batch"] * TP["seq"]
+        log(f"  12{'ab'[runs.index(cfg)]}: {cfg.name} at full width, "
+            f"{cfg.n_layers} layers {cfg.segments} ({cfg.dtype}, remat "
+            f"{cfg.remat}), {r['params']} parameters, {r['local_params']} "
+            f"and {r1['local_params']} held by ranks 0 and 1; "
+            f"{TP['steps']} steps of {TP['batch']} x {TP['seq']} tokens: "
+            f"losses {r['losses']}, grad norm {r['grad_norm']:.6f}; step s "
+            f"rank 0 {[round(x, 6) for x in r['secs']]}, rank 1 "
+            f"{[round(x, 6) for x in r1['secs']]} ({tokens} tokens a step; "
+            "two ranks share the card's SMs: recorded, not a speed); peak "
+            f"device memory rank 0 {r['peak']} B, rank 1 {r1['peak']} B; "
+            f"bytes of the last step, rank 0: {r['wire']}; rank 1: "
+            f"{r1['wire']}; [{smi}]")
+        if not np.isfinite(r["losses"] + [r["grad_norm"]]).all() or \
+                r["losses"] != r1["losses"]:
+            raise AssertionError(f"12 {cfg.name}: losses {r['losses']} "
+                                 f"vs {r1['losses']}")
+        if r["wire"].get("all-gather/data", 0):
+            raise AssertionError("12: a gather along data on a data "
+                                 "axis of one rank")
+        # the dry-run's count of this step (remat "layer": the recompute's
+        # all-reduces included) against the bytes the ranks moved
+        plan = {k: v for k, v in analysis.plan_collective_bytes(
+            cfg, {"data": 1, "model": TP["ranks"]}, "train",
+            tokens=tokens)["by_axis"].items() if k.endswith("/model")}
+        got = {k: r["wire"][k] for k in r["wire"] if k.endswith("/model")}
+        log(f"  12{'ab'[runs.index(cfg)]}: the dry-run's plan of this step "
+            f"along model (analysis.plan_collective_bytes): {plan}; rank 0 "
+            f"moved {got} (the plan leaves out the scalars and the loss's "
+            f"last position of each row: bound {TP_PLAN_SLACK} B)")
+        if set(plan) != set(got) or any(
+                abs(got[k] - v) > (TP_PLAN_SLACK if k.startswith(
+                    "all-reduce") else 0) for k, v in plan.items()):
+            raise AssertionError(f"12 {cfg.name}: the plan's count {plan} "
+                                 f"is not the step's {got}")
+    for launches in (res["launches"], res1["launches"]):
+        if any(launches.values()):
+            raise AssertionError(f"12 launched a kernel: {launches}")
+    log("  12a-12b launched none of the six kernels: "
+        + json.dumps(res["launches"]))
+    for cfg in exact:
+        e = {k: max(res["exact"][cfg.name][k], res1["exact"][cfg.name][k])
+             for k in res["exact"][cfg.name]}
+        dl = max(abs(r["exact"][cfg.name]["loss"]
+                     - r["exact"][cfg.name]["rep_loss"]) for r in (res, res1))
+        log(f"  12c: {cfg.name} at full width, {cfg.n_layers} layers "
+            f"{cfg.segments}, fp32, TF32 off, one step of "
+            f"{TP_EXACT['batch']} x {TP_EXACT['seq']} tokens split over "
+            f"{TP['ranks']} ranks vs the one-rank replicated step: loss "
+            f"{e['loss']:.6f} vs {e['rep_loss']:.6f} (diff {dl:.3e}, bound "
+            f"{TP_LOSS_ATOL:.0e}); gradients from m max abs diff "
+            f"{e['grad']:.3e}, from v {e['grad_v']:.3e} (bound "
+            f"{GRAD_ATOL:.0e}; largest gradient {e['gmax']:.4f}); weights "
+            f"{e['params']:.3e} (bound {2 * TP_EXACT['lr']:.0e}); each rank "
+            "holds its own shards against the same pieces of a replicated "
+            "step it runs beside")
+        if (dl > TP_LOSS_ATOL or e["grad"] > GRAD_ATOL
+                or e["grad_v"] > GRAD_ATOL
+                or e["params"] > 2 * TP_EXACT["lr"]):
+            raise AssertionError(f"12c {cfg.name}: the split step differs "
+                                 "from the replicated one")
+    log(f"  phase 12 took {time.perf_counter() - t0:.1f} s (rank 0 from its "
+        "process group up: " + ", ".join(f"{k} {v:.1f} s" for k, v in
+                                          res["times"].items()) + ")")
 
 
 # ------------------------------------------------------------------ phase 6
@@ -3543,6 +3831,13 @@ def main() -> int:
     t11 = time.perf_counter()
     paths["sharded"] = phase_sharded(dev, args, nbtree_stats)
     log(f"phase 11 took {time.perf_counter() - t11:.1f} s")
+    log("phase 12: the sharded step split over model (tensor and expert "
+        "parallelism), two ranks on the card: gemma-2b and "
+        "deepseek-moe-16b at full width, depth cut; fp32 vs the "
+        "replicated step")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_tp(dev, args)
     log("phase 6: durable open-loop ingest over torch-nbtree, crash and "
         "restart")
     t6 = time.perf_counter()

@@ -13,7 +13,9 @@ The port's own copy of the protocol surface of ``repro/core/engine_api.py``
   ``nbtree``, ``nbtree-basic`` (no deamortization) and
   ``nbtree-nobloom``; :class:`LSMEngine` as ``lsm`` and ``blsm`` (three
   levels at most); :class:`BTreeEngine` as ``btree``;
-  :class:`BEpsilonEngine` as ``bepsilon``.
+  :class:`BEpsilonEngine` as ``bepsilon``; and the static
+  :class:`BulkBTreeEngine` (``btree-bulk``, reads only), which, as in the
+  JAX package, is built from its keys and is not in the registry.
 
 :data:`FIVE_TIERS` names the paper's comparison set, with the port's
 device tier in the JAX package's ``jax-nbtree`` place.  The
@@ -44,7 +46,7 @@ import torch
 
 from ..obs.metrics import LogBucketHistogram
 from .bepsilon import BEpsilonTree
-from .btree import BPlusTree
+from .btree import BPlusTree, BPlusTreeBulk
 from .cost_model import HDD, CostModel, Device
 from .lsm import LSMTree
 from .refimpl import NBTree
@@ -463,6 +465,25 @@ class BEpsilonEngine(CostModelEngine):
             node = node.children[0]
             h += 1
         return h
+
+
+class BulkBTreeEngine(CostModelEngine):
+    """Static bulk-loaded B+-tree: QUERY/RANGE only (the paper's
+    yardstick)."""
+
+    name = "btree-bulk"
+
+    def __init__(self, keys, vals, *, device: Device = HDD, **kw):
+        super().__init__(BPlusTreeBulk(keys, vals, device=device, **kw))
+
+    def _do_insert(self, key, val):
+        raise UnsupportedOp("btree-bulk is static: INSERT unsupported")
+
+    def _do_delete(self, key):
+        raise UnsupportedOp("btree-bulk is static: DELETE unsupported")
+
+    def count_live(self) -> int:
+        return len(self.impl.keys)
 
 
 # ================================================================ device tier

@@ -20,18 +20,52 @@ layers under ``seg{i}``, so no leading layer dim is ever prepended.
 
 The sharded train step (``train/train_step.py``) holds each parameter,
 its AdamW ``m`` and ``v`` and its gradient as a DTensor placed by these
-specs (:func:`shard_model`).  Compute is not split over ``"model"``:
-each block runs on its weights gathered to full (:func:`gather_full`,
-inside the block's recompute checkpoint under ``remat == "layer"``), and
-every rank runs its own batch rows, those of its (pod, data) slot; ranks
-along ``"model"`` hold the same rows.  A gathered weight's gradient goes
-back to its shard: summed over ``"data"`` (a reduce-scatter where the
-weight is sharded there, an all-reduce where it is replicated) and
-divided by the data width; along ``"model"`` each rank keeps its own
-slice of a gradient every rank of the axis computed alike (a weight
-replicated over ``"model"`` is averaged there, which changes no value and
-keeps the copies equal whatever the kernels' rounding).  The step then
-averages over ``"pod"``.
+specs (:func:`shard_model`), and splits its compute over ``"model"`` as
+the reference's GSPMD plan does (Megatron's tensor and expert
+parallelism).  Every rank runs its own batch rows, those of its (pod,
+data) slot; ranks along ``"model"`` hold the same rows and split the
+work on them:
+
+* a block fetches its weights with :func:`gather_named` (inside the
+  block's recompute checkpoint under ``remat == "layer"``), each in one
+  of three modes (:data:`MODES`) that ``models/transformer.py::
+  model_plan`` picks with :func:`keeps_model_cut`: ``"local"``, gathered
+  over ``"data"`` only, so the rank keeps its ``"model"`` slice (whole
+  heads, experts, hidden units or vocab rows) and computes on it;
+  ``"full"``, gathered to full for compute every rank of the axis
+  repeats (norms, the router, the recurrent cells); ``"partial"``,
+  gathered to full for use inside a split region only, where each rank
+  adds its share of the gradient (the KV projections when the KV heads
+  do not divide over ``"model"``, MLA's ``wq_down`` whose cut splits the
+  latent its norm spans, the norms applied per head);
+* a split region (one of the regions ``model_plan`` names, which the
+  block hands its layer functions) starts with :func:`copy_to_model`
+  (identity, its gradient summed over ``"model"``) and ends with
+  :func:`reduce_from_model` (summed over ``"model"``, identity
+  backward): attention's heads with the row-parallel ``wo``, the MLP's
+  hidden units, the MoE's experts (or their hidden units where the
+  experts do not divide), the vocab of the embedding and of the logits;
+  the vocab-parallel loss (``models/transformer.py::
+  vocab_parallel_cross_entropy``) all-reduces the max
+  (:func:`all_reduce_max`, no gradient), the sum of exps and the gold
+  logit, so no rank builds the full logits.
+
+A fetched weight's gradient goes back to its shard: along ``"model"`` a
+local slice's gradient is its own; a ``"full"`` weight's, which every
+rank computed alike, is narrowed to the rank's slice (averaged where it
+is replicated there, which changes no value and keeps the copies equal
+whatever the kernels' rounding); a ``"partial"`` weight's is summed over
+the axis (a reduce-scatter where it is sharded there).  Over ``"data"``
+it is summed (a reduce-scatter where the weight is sharded there, an
+all-reduce where it is replicated) and divided by the data width.  The
+step then averages over ``"pod"``.
+
+Every collective of this module goes through one helper per kind, which
+counts its bytes by mesh axis (:func:`wire_counts`), skips a group of one
+rank (a sum or a gather over one rank is the identity: a gather still
+copies, as a parameter's gathered copy is contiguous) and, on a ``gloo``
+group handed CUDA tensors, runs through host copies (two ranks on one
+card: ``gloo`` carries the collective, the compute stays on the card).
 
 ``constrain`` is the identity (its docstring says why).  The reference's
 ``shard_map`` has no torch counterpart and is not ported: the compressed
@@ -40,6 +74,7 @@ step already runs its pod loop by hand, a rank per pod slot over a
 """
 from __future__ import annotations
 
+import collections
 import math
 import re
 
@@ -130,8 +165,6 @@ def dp_mean(t):
     """``t``'s mean over the data-parallel ranks of the current mesh (its
     ``dp_axes`` present in it), outside autograd; ``t`` without a mesh.
     Every rank of those axes must call it."""
-    import torch.distributed as dist
-
     mesh = current_mesh()
     axes = [a for a in current_dp_axes()
             if a in mesh_sizes(mesh) and mesh_sizes(mesh)[a] > 1]
@@ -139,7 +172,7 @@ def dp_mean(t):
         return t
     t = t.detach().clone()
     for a in axes:
-        dist.all_reduce(t, group=mesh.get_group(a))
+        all_reduce(t, mesh.get_group(a), a)
     return t / math.prod(mesh_sizes(mesh)[a] for a in axes)
 
 
@@ -148,9 +181,12 @@ def constrain(x, *logical):
 
     The reference's ``with_sharding_constraint`` is a placement hint to
     GSPMD: it moves data between devices and never changes a value.  In
-    the port no tensor of the forward is distributed: each rank computes
-    its own batch rows on full weights (module docstring), so there is
-    nothing to place.
+    the port no tensor of the forward is a DTensor: the split over
+    ``"model"`` happens where a block fetches its weights
+    (:func:`gather_named` in the modes of ``models/transformer.py::
+    model_plan``) and at the edges of its split regions
+    (:func:`copy_to_model`, :func:`reduce_from_model`), and the batch's
+    rows are split by the train step, so there is nothing to place.
     """
     return x
 
@@ -260,8 +296,8 @@ def shard_model(model, mesh, specs=None, params=None):
     """Place ``model``'s parameters on ``mesh`` in place, as DTensors by
     ``specs`` (default :func:`param_specs`); with ``params`` (``{name:
     DTensor}``, an elastic restore) take those instead.  The model's
-    forward then gathers each block's weights to full (``Transformer.
-    gather``).  Returns the model."""
+    forward then fetches each block's weights with :func:`gather_named`
+    (``Transformer.gather``).  Returns the model."""
     if params is None:
         specs = specs or param_specs(model, mesh)
         with torch.no_grad():
@@ -279,23 +315,212 @@ def shard_model(model, mesh, specs=None, params=None):
     return model
 
 
-class _Gather(torch.autograd.Function):
-    """A local shard -> the full tensor (all-gathers over the mesh dims
-    that shard it); its backward takes the full gradient back to the shard
-    (module docstring)."""
+# ------------------------------------------------------------- collectives
+#: ``{(kind, axis): bytes}`` this rank received by all-gathers and handed
+#: to all-reduces and reduce-scatters since :func:`reset_wire_counts`
+_WIRE: collections.Counter = collections.Counter()
+#: names of the weights :func:`gather_named` gathered along ``"model"``
+_MODEL_GATHERED: set = set()
+
+
+def reset_wire_counts() -> None:
+    _WIRE.clear()
+    _MODEL_GATHERED.clear()
+
+
+def wire_counts() -> dict:
+    """``{"kind/axis": bytes}`` since :func:`reset_wire_counts` (an
+    all-gather's bytes are those the rank received; an all-reduce's and a
+    reduce-scatter's its operand's), and ``"model_gathered"``, the sorted
+    names of the weights gathered along ``"model"``."""
+    out = {f"{k}/{a}": int(v) for (k, a), v in sorted(_WIRE.items())}
+    out["model_gathered"] = sorted(_MODEL_GATHERED)
+    return out
+
+
+def _via_host(t, group) -> bool:
+    """Whether a collective of ``t`` over ``group`` goes through a host
+    copy: ``gloo`` handed a CUDA tensor."""
+    import torch.distributed as dist
+
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def all_reduce(t, group, axis: str, op: str = "sum"):
+    """``t`` reduced in place over ``group`` (``op`` "sum" or "max"),
+    counted under ``axis``; returns ``t``."""
+    import torch.distributed as dist
+
+    red = dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM
+    if dist.get_world_size(group) == 1:
+        return t
+    _WIRE["all-reduce", axis] += t.numel() * t.element_size()
+    if _via_host(t, group):
+        h = t.cpu()
+        dist.all_reduce(h, op=red, group=group)
+        return t.copy_(h)
+    dist.all_reduce(t, op=red, group=group)
+    return t
+
+
+def _all_gather(t, dim: int, group, axis: str):
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    if n == 1:              # a copy, contiguous, as a gather gives
+        return t.clone(memory_format=torch.contiguous_format)
+    src = t.movedim(dim, 0).contiguous()
+    out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
+    _WIRE["all-gather", axis] += (n - 1) * src.numel() * src.element_size()
+    if _via_host(src, group):
+        h = out.cpu()
+        dist.all_gather_into_tensor(h, src.cpu(), group=group)
+        out.copy_(h)
+    else:
+        dist.all_gather_into_tensor(out, src, group=group)
+    # contiguous, as the parameter is: the products then see the layout
+    # an unsharded model's weight has
+    return out.movedim(0, dim).contiguous()
+
+
+def _reduce_scatter(t, dim: int, group, axis: str):
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    if n == 1:
+        return t
+    src = t.movedim(dim, 0).contiguous()
+    out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
+    _WIRE["reduce-scatter", axis] += src.numel() * src.element_size()
+    if _via_host(src, group):
+        h = out.cpu()
+        dist.reduce_scatter_tensor(h, src.cpu(), group=group)
+        out.copy_(h)
+    else:
+        dist.reduce_scatter_tensor(out, src, group=group)
+    return out.movedim(0, dim)
+
+
+def _model_group():
+    """(group, rank, size) of the current mesh's ``"model"`` axis, or None
+    where it has one rank or there is no mesh."""
+    mesh = current_mesh()
+    if mesh_sizes(mesh).get("model", 1) <= 1:
+        return None
+    return (mesh.get_group("model"), mesh.get_local_rank("model"),
+            mesh_sizes(mesh)["model"])
+
+
+def model_rank() -> int:
+    """This rank's index along ``"model"`` of the current mesh (0 without
+    one)."""
+    g = _model_group()
+    return 0 if g is None else g[1]
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's ``f``: identity forward, the gradient summed over
+    ``"model"``."""
 
     @staticmethod
-    def forward(ctx, local, mesh, places):
-        ctx.mesh, ctx.places = mesh, places
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.group, "model"), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's ``g``: summed over ``"model"``, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce(x.contiguous().clone(), group, "model")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x):
+    """``x`` entering a split region: the identity, whose gradient (each
+    rank's share) is summed over ``"model"``; ``x`` itself without a
+    ``"model"`` axis."""
+    g = _model_group()
+    return x if g is None else _CopyToModel.apply(x, g[0])
+
+
+def reduce_from_model(x):
+    """A split region's partial result summed over ``"model"`` (identity
+    backward: every rank's copy of the sum carries the same gradient);
+    ``x`` itself without a ``"model"`` axis."""
+    g = _model_group()
+    return x if g is None else _ReduceFromModel.apply(x, g[0])
+
+
+def all_reduce_max(x):
+    """The elementwise max of ``x`` over ``"model"``, detached (the loss's
+    shift, which carries no gradient)."""
+    g = _model_group()
+    x = x.detach()
+    return x if g is None else all_reduce(x.contiguous().clone(), g[0],
+                                          "model", op="max")
+
+
+# ------------------------------------------------------ fetching the weights
+#: how :func:`gather_named` fetches a weight (module docstring)
+MODES = ("local", "full", "partial")
+
+
+def spec_model_cut(shape, spec, sizes: dict):
+    """``(dim, local length)`` of the tensor dim that ``spec`` shards over
+    a ``"model"`` axis of more than one rank on a mesh of ``sizes``, or
+    None."""
+    m = sizes.get("model", 1)
+    if m <= 1 or "model" not in spec:
+        return None
+    d = list(spec).index("model")
+    return d, shape[d] // m
+
+
+def model_cut(p):
+    """:func:`spec_model_cut` of DTensor ``p``."""
+    mesh = p.device_mesh
+    spec = [None] * p.dim()
+    for name, pl in zip(mesh.mesh_dim_names, p.placements):
+        if pl.is_shard():
+            spec[pl.dim] = name
+    return spec_model_cut(tuple(p.shape), spec, mesh_sizes(mesh))
+
+
+def keeps_model_cut(cut, unit: int = 1) -> bool:
+    """Whether a ``"model"`` cut (:func:`model_cut`) falls on a boundary of
+    ``unit`` elements of its dim (a head of ``unit`` features, an expert,
+    a hidden unit or a vocab row of ``unit = 1``): each rank then holds
+    whole units and can compute on its own slice."""
+    return cut is not None and cut[1] % unit == 0
+
+
+class _Gather(torch.autograd.Function):
+    """A local shard -> the tensor a block runs on (all-gathers over the
+    mesh dims that shard it, but ``"model"`` in mode ``"local"``); its
+    backward takes the gradient back to the shard (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, local, mesh, places, mode):
+        ctx.mesh, ctx.places, ctx.mode = mesh, places, mode
         full = local
         for i, pl in enumerate(places):
-            if pl.is_shard():
-                full = _all_gather(full, pl.dim, mesh.get_group(i))
+            name = mesh.mesh_dim_names[i]
+            if pl.is_shard() and not (name == "model" and mode == "local"):
+                full = _all_gather(full, pl.dim, mesh.get_group(i), name)
         return full
 
     @staticmethod
     def backward(ctx, g):
-        mesh, places = ctx.mesh, ctx.places
+        mesh, places, mode = ctx.mesh, ctx.places, ctx.mode
         names = mesh.mesh_dim_names
         g = g if g.dtype == torch.float64 else g.float()
         for i in reversed(range(len(places))):
@@ -304,52 +529,38 @@ class _Gather(torch.autograd.Function):
                 if pl.is_shard():
                     raise ValueError("no parameter is sharded over 'pod'")
                 continue                   # the step's pod mean, later
-            n = mesh.size(i)
+            n, group = mesh.size(i), mesh.get_group(i)
             if name == "model" and pl.is_shard():
-                k = g.shape[pl.dim] // n
-                g = g.narrow(pl.dim, mesh.get_local_rank(i) * k, k)
+                if mode == "partial":       # each rank's share: summed
+                    g = _reduce_scatter(g, pl.dim, group, name)
+                elif mode == "full":        # alike on every rank: its slice
+                    k = g.shape[pl.dim] // n
+                    g = g.narrow(pl.dim, mesh.get_local_rank(i) * k, k)
+            elif name == "model" and mode == "partial":
+                g = all_reduce(g.contiguous(), group, name)
             elif pl.is_shard():             # "data": reduce-scatter, mean
-                g = _reduce_scatter(g, pl.dim, mesh.get_group(i)) / n
+                g = _reduce_scatter(g, pl.dim, group, name) / n
             else:                           # replicated: all-reduce, mean
-                import torch.distributed as dist
-
-                g = g.contiguous()
-                dist.all_reduce(g, group=mesh.get_group(i))
-                g = g / n
-        return g.contiguous(), None, None
+                g = all_reduce(g.contiguous(), group, name) / n
+        return g.contiguous(), None, None, None
 
 
-def _all_gather(t, dim: int, group):
-    import torch.distributed as dist
-
-    n = dist.get_world_size(group)
-    src = t.movedim(dim, 0).contiguous()
-    out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
-    dist.all_gather_into_tensor(out, src, group=group)
-    # contiguous, as the parameter is: the products then see the layout
-    # an unsharded model's weight has
-    return out.movedim(0, dim).contiguous()
-
-
-def _reduce_scatter(t, dim: int, group):
-    import torch.distributed as dist
-
-    n = dist.get_world_size(group)
-    src = t.movedim(dim, 0).contiguous()
-    out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
-    dist.reduce_scatter_tensor(out, src, group=group)
-    return out.movedim(0, dim)
-
-
-def gather_full(p):
-    """The full tensor of DTensor ``p``, differentiable: its gradient
-    reaches ``p`` as a DTensor placed like ``p``."""
-    return _Gather.apply(p.to_local(), p.device_mesh, tuple(p.placements))
-
-
-def gather_named(named: dict) -> dict:
-    """``{name: gather_full(p)}``."""
-    return {n: gather_full(p) for n, p in named.items()}
+def gather_named(named: dict, modes: dict | None = None) -> dict:
+    """``{name: the tensor a block runs on}`` of DTensors ``named``, each
+    fetched in ``modes[name]`` (:data:`MODES`, ``"full"`` where ``modes``
+    names none; ``"local"`` keeps the ``"model"`` slice), differentiable:
+    each gradient reaches its DTensor placed like it."""
+    modes = modes or {}
+    out = {}
+    for n, p in named.items():
+        mode = modes.get(n, "full")
+        if mode not in MODES:
+            raise ValueError(f"mode {mode!r} is not among {MODES}")
+        if mode != "local" and model_cut(p) is not None:
+            _MODEL_GATHERED.add(n)
+        out[n] = _Gather.apply(p.to_local(), p.device_mesh,
+                               tuple(p.placements), mode)
+    return out
 
 
 def replication(p) -> int:
@@ -363,25 +574,29 @@ def global_norm(local: dict, params: dict) -> torch.Tensor:
     """The L2 norm of a sharded tree in fp32: each rank's sum of squares
     of its shards, each element counted once (divided by the ranks that
     hold it), summed over every rank of the mesh."""
-    import torch.distributed as dist
-
     sq = sum(torch.sum(torch.square(t.float())) / replication(params[n])
              for n, t in local.items()).reshape(1)
     mesh = next(iter(params.values())).device_mesh
-    for i in range(mesh.ndim):
-        dist.all_reduce(sq, group=mesh.get_group(i))
+    for i, name in enumerate(mesh.mesh_dim_names):
+        all_reduce(sq, mesh.get_group(i), name)
     return torch.sqrt(sq[0])
 
 
 def full_state(tree, keep: bool = True):
-    """``tree`` with each DTensor gathered to its full tensor
-    (``full_tensor``; every rank of its mesh must call) and every leaf
-    copied to the host, leaf by leaf, so the card holds one gathered leaf
-    at a time; a rank that does not ``keep`` them gets None leaves."""
+    """``tree`` with each DTensor gathered to its full tensor (the gather
+    helper over each mesh dim that shards it; every rank of its mesh must
+    call) and every leaf copied to the host, leaf by leaf, so the card
+    holds one gathered leaf at a time; a rank that does not ``keep`` them
+    gets None leaves."""
     from torch.distributed.tensor import DTensor
 
     if isinstance(tree, dict):
         return {k: full_state(v, keep) for k, v in tree.items()}
     if isinstance(tree, DTensor):
-        tree = tree.full_tensor()
+        mesh, local = tree.device_mesh, tree.to_local().detach()
+        for i, pl in enumerate(tree.placements):
+            if pl.is_shard():
+                local = _all_gather(local, pl.dim, mesh.get_group(i),
+                                    mesh.mesh_dim_names[i])
+        tree = local
     return tree.detach().to("cpu", copy=True) if keep else None

@@ -17,23 +17,26 @@ sizes (16 x 16 and 2 x 16 x 16; ``launch/mesh.py::production_shape``):
 * their per-rank bytes follow the placements of
   ``distributed/sharding.py::param_specs`` (parameters, AdamW ``m`` and
   ``v``, gradients) and the plan's rows (the batch's rows over pod x
-  data where they divide, as the reference's ``batch_specs``; a cache
-  follows its rows and is not split over ``"model"``, whose ranks
-  compute every head);
+  data where they divide, as the reference's ``batch_specs``; a
+  serving cache follows its rows and is not split over ``"model"``);
 * ``activation_estimate`` adds what one step keeps live besides: under
   ``remat == "layer"`` each layer's input, one layer's working set (its
   attention scores, projections and MLP hidden, the recurrences' per-step
-  states that autograd keeps), the logits with their fp32 copy and
-  gradient, and the gathered weights of one layer and of the
-  embeddings.  It is an estimate, labelled so;
+  states that autograd keeps; in a train cell the split parts 1/m of
+  it), the logits with their fp32 copy and gradient (1/m where the vocab
+  is split), and the fetched weights of one layer and of the embeddings
+  (a split weight's 1/m).  It is an estimate, labelled so;
 * the total is held against the planned card's device memory
   (``hardware.H100[hardware.PLANNED]["hbm_bytes"]``, ``fits``);
 * FLOPs are the plan's per rank: ``model_flops`` per token over this
-  rank's rows (compute is duplicated along ``"model"``) times the step's
+  rank's rows, the weights the train plan splits over ``"model"``
+  counted 1/m (``analysis.active_params_per_rank``; the serving layout
+  repeats every product on each rank of the axis), times the step's
   passes (forward, backward, the recompute), plus attention's score and
-  value products; HBM bytes the plan's reads of the gathered weights,
-  the optimizer's pass over its shards, the activations and the cache;
-  collective bytes ``roofline/analysis.py::plan_collective_bytes``.
+  value products (1/m where the heads are split); HBM bytes the plan's
+  reads of the fetched weights, the optimizer's pass over its shards,
+  the activations and the cache; collective bytes
+  ``roofline/analysis.py::plan_collective_bytes``.
 
 It does not run the step on meta tensors: the recurrences step a Python
 loop over time (``models/ssm.py``), so a ``prefill_32k`` cell would take
@@ -65,10 +68,13 @@ from ..roofline import hardware as hw
 from .mesh import production_shape
 
 PLAN = ("port: parameters, AdamW m and v and gradients placed by "
-        "distributed/sharding.py::param_specs; each layer's weights "
-        "gathered to full to run; batch rows over pod x data, compute "
-        "duplicated along model; bytes and FLOPs counted from this plan, "
-        "not from HLO")
+        "distributed/sharding.py::param_specs; batch rows over pod x data; "
+        "each layer's weights gathered over data, and over model only "
+        "where the plan cannot split there (off-boundary KV heads, MLA's "
+        "wq_down, the recurrent cells); attention heads, MLP hidden units, "
+        "MoE experts (or their hidden units) and the vocab split over "
+        "model, with activation all-reduces there; bytes and FLOPs counted "
+        "from this plan, not from HLO")
 #: the prefill and decode cells' plan: the port has no sharded serving
 #: path (``serve/`` takes no mesh), so these records count a layout that
 #: no code of the port runs
@@ -154,8 +160,13 @@ def attention_flops(cfg, shape, rows: int) -> float:
 
 
 def _layer_working_bytes(cfg, kind, shape, rows: int, item: int,
-                         grad: bool) -> float:
-    """One layer's live activations while it runs (an estimate)."""
+                         grad: bool, split=frozenset(), m: int = 1) -> float:
+    """One layer's live activations while it runs (an estimate); the
+    parts of the regions in ``split`` (the train plan's, ``models/
+    transformer.py::REGIONS``) 1/m, split over ``"model"`` of ``m``."""
+    def part(*regions):
+        return 1.0 / m if split & set(regions) else 1.0
+
     S = 1 if shape.kind == "decode" else shape.seq_len
     tok = rows * S
     d = cfg.d_model
@@ -163,22 +174,23 @@ def _layer_working_bytes(cfg, kind, shape, rows: int, item: int,
     if kind in ATTN_KINDS:
         H, D = _attn_dims(cfg, kind)
         T = _kv_len(cfg, kind, shape)
-        out += tok * (2 * H * D + 2 * cfg.n_kv_heads * D) * item
+        a = tok * (2 * H * D + 2 * cfg.n_kv_heads * D) * item
         if should_use_blockwise(rows, S, T, H):
-            out += 2.0 * rows * H * min(S, 512) * min(T, 1024) * 4
+            a += 2.0 * rows * H * min(S, 512) * min(T, 1024) * 4
         else:
-            out += 2.0 * rows * H * S * T * 4       # fp32 scores and probs
+            a += 2.0 * rows * H * S * T * 4         # fp32 scores and probs
+        out += a * part("attn")
     if kind in ("moe", "moe_swa"):
         dff = cfg.d_expert or cfg.d_ff
         slots = tok * cfg.top_k * cfg.capacity_factor
-        out += slots * (d + 3 * dff) * item
-        out += tok * 3 * dff * cfg.n_shared_experts * item
+        out += slots * (d + 3 * dff) * item * part("experts", "expert_hidden")
+        out += tok * 3 * dff * cfg.n_shared_experts * item * part("shared")
     elif kind in ("mlstm", "slstm"):
         dk = d // cfg.n_heads
         per_step = (cfg.n_heads * dk * dk if kind == "mlstm" else 8 * d) * 4
         out += rows * per_step * (S if grad else 1)  # autograd keeps each step
     elif kind in ATTN_KINDS:
-        out += tok * 3 * cfg.d_ff * item
+        out += tok * 3 * cfg.d_ff * item * part("mlp")
     if kind in ("hybrid", "hybrid_global"):
         di = cfg.ssm_expand * d
         out += rows * di * cfg.ssm_state * 4 * (S if grad else 1)
@@ -187,10 +199,16 @@ def _layer_working_bytes(cfg, kind, shape, rows: int, item: int,
 
 
 def activation_estimate(cfg, shape, rows: int, microbatches: int,
-                        shapes: dict) -> dict:
-    """Live bytes besides the state (module docstring), by part."""
+                        shapes: dict, plan=None, m: int = 1) -> dict:
+    """Live bytes besides the state (module docstring), by part; ``plan``
+    (``analysis.train_plan``) splits a train cell's parts over
+    ``"model"`` of ``m`` ranks."""
     item = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
     train = shape.kind == "train"
+    modes = plan.modes if plan else {}
+    kinds = [k for k, c in cfg.segments for _ in range(c)]
+    split = dict(zip(kinds, plan.layers)) if plan else {}
+
     mb_rows = rows // microbatches if train else rows
     S = 1 if shape.kind == "decode" else shape.seq_len
     tok = mb_rows * S
@@ -199,18 +217,20 @@ def activation_estimate(cfg, shape, rows: int, microbatches: int,
         out["layer_inputs"] = float(cfg.n_layers * tok * cfg.d_model * item)
     elif train:
         out["layer_inputs"] = float(sum(
-            count * _layer_working_bytes(cfg, kind, shape, mb_rows, item, True)
+            count * _layer_working_bytes(cfg, kind, shape, mb_rows, item,
+                                         True, split.get(kind, frozenset()),
+                                         m)
             for kind, count in cfg.segments))
-    out["one_layer"] = max(_layer_working_bytes(cfg, kind, shape, mb_rows,
-                                                item, train)
-                           for kind, _ in cfg.segments)
+    out["one_layer"] = max(_layer_working_bytes(
+        cfg, kind, shape, mb_rows, item, train, split.get(kind, frozenset()),
+        m) for kind, _ in cfg.segments)
     logit_rows = tok if (train or cfg.encoder_only) else mb_rows
-    out["logits"] = float(logit_rows * cfg.vocab
-                          * (item + (8 if train else 4)))
+    vocab = cfg.vocab / (m if plan and "vocab" in plan.top else 1)
+    out["logits"] = float(logit_rows * vocab * (item + (8 if train else 4)))
     layer_bytes = {}
     top = 0.0
     for name, (s, it) in shapes.items():
-        nb = math.prod(s) * it
+        nb = math.prod(s) * it / (m if modes.get(name) == "local" else 1)
         if name.startswith("layers."):
             i = int(name.split(".")[1])
             layer_bytes[i] = layer_bytes.get(i, 0) + nb
@@ -260,24 +280,33 @@ def lower_cell(arch: str, shape_name: str, mesh, *, microbatches: int = 1,
         # the rows' cache (the prefill builds the one decode reads)
         cache = float(_tree_bytes(model.init_cache(rows, shape.seq_len)))
         per_rank["cache"] = cache
-    est = activation_estimate(cfg, shape, rows, microbatches, shapes)
+    plan = analysis.train_plan(cfg, sizes) if train else None
+    modes = plan.modes if train else {}
+    m = sizes.get("model", 1)
+    est = activation_estimate(cfg, shape, rows, microbatches, shapes,
+                              plan, m)
     per_rank["activation_estimate"] = sum(est.values())
     total = sum(per_rank.values())
 
     # FLOPs and HBM bytes of the plan, per rank
     passes = (4 if cfg.remat == "layer" else 3) if train else 1
-    flops = (passes * 2.0 * analysis.active_params(cfg) * tokens_rank
-             + passes * attention_flops(cfg, shape, rows))
-    full_weights = sum(math.prod(s) * it for s, it in shapes.values())
+    attn_split = m if plan and any("attn" in s for s in plan.layers) else 1
+    active = (analysis.active_params_per_rank(cfg, sizes) if train
+              else analysis.active_params(cfg))
+    flops = (passes * 2.0 * active * tokens_rank
+             + passes * attention_flops(cfg, shape, rows) / attn_split)
+    fetched = sum(math.prod(s) * it / (m if modes.get(n) == "local" else 1)
+                  for n, (s, it) in shapes.items())
     weight_reads = (3 if cfg.remat == "layer" else 2) if train else 1
-    hbm = weight_reads * full_weights * (microbatches if train else 1)
+    hbm = weight_reads * fetched * (microbatches if train else 1)
     if train:
         hbm += sum(e * (3 * shapes[n][1] + 16) for n, e in elems.items())
         hbm += 2 * est["layer_inputs"] + 2 * est["logits"]
     else:
         hbm += cache + est["logits"]
-    wires = analysis.plan_collective_bytes(cfg, sizes, shape.kind,
-                                           microbatches=microbatches)
+    wires = analysis.plan_collective_bytes(
+        cfg, sizes, shape.kind, microbatches=microbatches,
+        tokens=tokens_rank if train else 0)
     mf = analysis.model_flops(cfg, tokens, "train" if train else "serve")
     roof = analysis.analyze_from(
         flops=flops, hbm_bytes=hbm, nvlink_bytes=wires["nvlink"],

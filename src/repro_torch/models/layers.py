@@ -22,6 +22,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed.sharding import (copy_to_model, model_rank,
+                                    reduce_from_model)
 from .blockwise_attn import blockwise_sdpa, should_use_blockwise
 
 
@@ -169,21 +171,39 @@ def causal_mask(S, T=None, window=None, offset=0, device=None):
 
 def project_qkv(x, p, cfg, cos, sin):
     """Projections, qk-norm and RoPE: x (B, S, d) -> q (B,S,H,D), k, v
-    (B,S,KVH,D), as ``attention`` computes them before attending."""
+    (B,S,KVH,D), as ``attention`` computes them before attending.  H and
+    KVH are the heads the weights hold: a rank's own under the sharded
+    step's split over ``"model"``."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
-    q = (x @ p.wq).reshape(B, S, cfg.n_heads, hd)
-    k = (x @ p.wk).reshape(B, S, cfg.n_kv_heads, hd)
-    v = (x @ p.wv).reshape(B, S, cfg.n_kv_heads, hd)
+    q = (x @ p.wq).reshape(B, S, -1, hd)
+    k = (x @ p.wk).reshape(B, S, -1, hd)
+    v = (x @ p.wv).reshape(B, S, -1, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm, cfg.norm_eps)
         k = rms_norm(k, p.k_norm, cfg.norm_eps)
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
+def _own_kv_heads(t, H_local: int, cfg):
+    """The KV heads (B, S, KVH, D) ``t`` of every rank reduced to those
+    that this rank's ``H_local`` query heads read (heads ``r * H_local``
+    on, r its ``"model"`` index): a contiguous run of whole groups, one
+    head shared by them all, or, where the groups straddle ranks, one KV
+    head per query head."""
+    G = cfg.n_heads // cfg.n_kv_heads
+    first = model_rank() * H_local
+    if H_local % G == 0:
+        return t[:, :, first // G:(first + H_local) // G]
+    if G % H_local == 0:
+        return t[:, :, first // G:first // G + 1]
+    idx = torch.arange(first, first + H_local, device=t.device) // G
+    return t.index_select(2, idx)
+
+
 def attention(x, p, cfg, *, positions, kind="causal", window=None,
               cache=None, cache_index=None, true_index=None,
-              mrope_positions=None):
+              mrope_positions=None, split=frozenset()):
     """Full-sequence or single-step (cache) attention.
 
     ``kind`` is ``"causal"`` or ``"bidir"``; ``window`` enables SWA (a key
@@ -200,9 +220,20 @@ def attention(x, p, cfg, *, positions, kind="causal", window=None,
     ``k_scale``/``v_scale``) stores the token quantized and attends over
     the dequantized cache: the cache tensor's dtype picks the path, as in
     the reference.  Returns (out, cache).
+
+    With ``"attn"`` in ``split`` (the sharded step's regions split over
+    ``"model"``, ``models/transformer.py::model_plan``) the weights hold
+    this rank's query heads (``wq`` column-, ``wo`` row-parallel) and,
+    with ``"kv"``, its KV heads, else every KV head
+    (:func:`_own_kv_heads` picks those its queries read): x enters
+    through ``copy_to_model`` and the output is summed over the axis.
     """
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
+    H = p.wq.shape[1] // hd                   # the heads this rank holds
+    heads = "attn" in split
+    if heads:
+        x = copy_to_model(x)
     if cfg.mrope_sections is not None:
         pos3 = mrope_positions
         if pos3 is None:
@@ -211,6 +242,8 @@ def attention(x, p, cfg, *, positions, kind="causal", window=None,
     else:
         cos, sin = rope_angles(positions, hd, cfg.rope_base)
     q, k, v = project_qkv(x, p, cfg, cos, sin)
+    if heads and "kv" not in split:
+        k, v = _own_kv_heads(k, H, cfg), _own_kv_heads(v, H, cfg)
 
     if cache is None:
         if should_use_blockwise(B, S, S, cfg.n_heads):
@@ -253,7 +286,9 @@ def attention(x, p, cfg, *, positions, kind="causal", window=None,
                 cv = cv.float() * cache["v_scale"][..., None]
             out = _sdpa(q, ck, cv, m[:, None, :]).to(x.dtype)
         new_cache = cache
-    out = out.reshape(B, S, cfg.n_heads * hd) @ p.wo
+    out = out.reshape(B, S, H * hd) @ p.wo
+    if heads:
+        out = reduce_from_model(out)
     return out, new_cache
 
 
@@ -269,7 +304,17 @@ class MLP(nn.Module):
         self.wo = _weight((d_ff, d), dtype, device)
 
 
-def mlp(x, p, kind):
+def mlp(x, p, kind, split=False):
+    """The MLP of ``kind``.  ``split`` (the sharded step's ``"mlp"``
+    region, ``models/transformer.py::model_plan``): the weights hold this
+    rank's hidden units (``wi``/``wg`` columns, ``wo`` rows), x enters
+    through ``copy_to_model`` and the output is summed over the axis."""
+    if split:
+        return reduce_from_model(_mlp(copy_to_model(x), p, kind))
+    return _mlp(x, p, kind)
+
+
+def _mlp(x, p, kind):
     # jax.nn.gelu defaults to the tanh approximation.
     if kind == "swiglu":
         return (F.silu(x @ p.wg) * (x @ p.wi)) @ p.wo

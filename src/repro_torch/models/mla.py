@@ -13,6 +13,7 @@ import math
 import torch
 from torch import nn
 
+from ..distributed.sharding import copy_to_model, reduce_from_model
 from .blockwise_attn import blockwise_sdpa, should_use_blockwise
 from .layers import _weight, apply_rope, rms_norm, rope_angles
 
@@ -43,7 +44,8 @@ class MLA(nn.Module):
         self.wo = _weight((H * m.v_head_dim, d), dtype, device)
 
 
-def mla_attention(x, p, cfg, *, positions, cache=None, cache_index=None):
+def mla_attention(x, p, cfg, *, positions, cache=None, cache_index=None,
+                  split=frozenset()):
     """Returns (out, cache).
 
     Without ``cache``: x (B, S, d), causal attention over K/V built from
@@ -54,12 +56,24 @@ def mla_attention(x, p, cfg, *, positions, cache=None, cache_index=None):
     ``cache_index`` (int) and attends in the *absorbed* form, which reads
     only the latent cache; slots up to ``cache_index`` attend (no stored
     positions).
+
+    With ``"attn"`` in ``split`` (the sharded step's regions split over
+    ``"model"``, ``models/transformer.py::model_plan``), ``wq_up``,
+    ``wk_up``, ``wv_up`` (columns) and ``wo`` (rows) hold this rank's
+    heads, and the down projections and their norms every rank's
+    (``wq_down``, whose cut would split the latent its norm spans,
+    gathered): x enters through ``copy_to_model`` and the output is
+    summed over the axis.
     """
     m = cfg.mla
     B, S, _ = x.shape
-    H, R = cfg.n_heads, m.kv_lora_rank
+    R = m.kv_lora_rank
     nope, rope = m.qk_nope_head_dim, m.qk_rope_head_dim
     qk_dim = nope + rope
+    H = p.wq_up.shape[1] // qk_dim            # this rank's heads
+    split = "attn" in split
+    if split:
+        x = copy_to_model(x)
 
     q = rms_norm(x @ p.wq_down, p.q_norm, cfg.norm_eps) @ p.wq_up
     q = q.reshape(B, S, H, qk_dim)
@@ -79,7 +93,7 @@ def mla_attention(x, p, cfg, *, positions, cache=None, cache_index=None):
         k_cat = torch.cat([k_nope, k_rope_new[:, :, None, :].expand(
             B, S, H, rope)], -1)
         q_cat = torch.cat([q_nope, q_rope], -1)           # (B, S, H, qk_dim)
-        if should_use_blockwise(B, S, S, H):
+        if should_use_blockwise(B, S, S, cfg.n_heads):
             out = blockwise_sdpa(q_cat, k_cat, v, qpos=positions,
                                  kpos=positions, kind="causal")
         else:
@@ -91,6 +105,8 @@ def mla_attention(x, p, cfg, *, positions, cache=None, cache_index=None):
             w = torch.softmax(sc, dim=-1)
             out = torch.einsum("bhst,bthd->bshd", w, v.float())
         out = out.reshape(B, S, H * m.v_head_dim).to(x.dtype) @ p.wo
+        if split:
+            out = reduce_from_model(out)
         return out, {"c_kv": c_kv, "k_rope": k_rope_new}
 
     # ---- decode: absorbed attention ---------------------------------------

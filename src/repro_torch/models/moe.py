@@ -26,6 +26,16 @@ its own rows, so the expert fractions (no gradient) are averaged over
 the data-parallel ranks first (``sharding.dp_mean``); each rank's term
 then averages, over the ranks, to the reference's, and so does its
 gradient.
+
+Under the sharded step's split over ``"model"`` (``distributed/
+sharding.py``) ranks along the axis hold the same rows, so expert
+parallelism needs no all-to-all: every rank routes alike and builds the
+same ``E x cap`` grid, runs the expert product over its own ``E / m``
+experts only and adds its slots into ``y``, which is summed over the
+axis.  Where ``m`` does not divide ``E`` the weights hold every expert's
+share of the hidden units instead (the reference's fallback rule), and
+every slot's partial output is added.  The shared experts are split as
+an MLP.  The balance term sees every rank's same rows, unchanged.
 """
 from __future__ import annotations
 
@@ -33,7 +43,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..distributed.sharding import dp_mean
+from ..distributed.sharding import (copy_to_model, dp_mean, model_rank,
+                                    reduce_from_model)
 from .layers import MLP, _weight
 
 
@@ -88,38 +99,57 @@ def route(xf, p, cfg):
     return gate, eidx, order, keep, dest, cap
 
 
-def moe_mlp(x, p, cfg):
-    """x (B, S, d) -> (B, S, d): top-k routing with capacity dispatch."""
+def moe_mlp(x, p, cfg, split=frozenset()):
+    """x (B, S, d) -> (B, S, d): top-k routing with capacity dispatch.
+    ``split``: the sharded step's regions split over ``"model"``
+    (``models/transformer.py::model_plan``): "experts" or
+    "expert_hidden" for the routed experts, "shared" for the shared ones
+    (module docstring)."""
     B, S, d = x.shape
     N, E, K = B * S, cfg.n_experts, cfg.top_k
     xf = x.reshape(N, d)
     gate, _, order, keep, dest, cap = route(xf, p, cfg)
     slot_token = order // K                                   # (N*K,)
+    E_local = p.wi.shape[0]                   # the experts this rank holds
+    routed = bool(split & {"experts", "expert_hidden"})
+    lo = model_rank() * E_local if "experts" in split else 0   # own first
+    # the split parts' input: every rank's share of its gradient summed
+    xin = copy_to_model(xf) if routed or "shared" in split else xf
 
     # Row N of xpad is the padding row; a dropped slot's write goes to the
     # extra grid row E*cap, which is cut off (the reference's mode="drop").
     grid_token = torch.full((E * cap + 1,), N, dtype=torch.long,
                             device=x.device)
     grid_token.scatter_(0, torch.where(keep, dest, E * cap), slot_token)
-    xpad = torch.cat([xf, xf.new_zeros((1, d))])
-    xg = xpad[grid_token[:E * cap]].reshape(E, cap, d)
+    xpad = torch.cat([xin if routed else xf, xf.new_zeros((1, d))])
+    xg = xpad[grid_token[lo * cap:(lo + E_local) * cap]].reshape(
+        E_local, cap, d)
 
-    # ---- expert FFN: every expert's cap rows in one batched product -----
+    # ---- expert FFN: every (own) expert's cap rows in one batched product
     h = torch.bmm(xg, p.wi)
     g = torch.bmm(xg, p.wg)
-    yg = torch.bmm(F.silu(g) * h, p.wo).to(x.dtype).reshape(E * cap, d)
+    yg = torch.bmm(F.silu(g) * h, p.wo).to(x.dtype).reshape(E_local * cap, d)
 
     # ---- combine back with the gate weights, in fp32 ---------------------
     slot_gate = gate.reshape(N * K)[order]
-    contrib = torch.where(keep, slot_gate, 0.0)
-    vals = yg[torch.where(keep, dest, 0)].float()
+    mine = keep
+    if routed:
+        slot_gate = copy_to_model(slot_gate)
+        mine = keep & (dest >= lo * cap) & (dest < (lo + E_local) * cap)
+    contrib = torch.where(mine, slot_gate, 0.0)
+    vals = yg[torch.where(mine, dest - lo * cap, 0)].float()
     y = torch.zeros((N + 1, d), dtype=torch.float32, device=x.device)
-    y.index_add_(0, torch.where(keep, slot_token, N), vals * contrib[:, None])
-    out = y[:N].to(x.dtype)
+    y.index_add_(0, torch.where(mine, slot_token, N), vals * contrib[:, None])
+    y = y[:N]
+    if routed:
+        y = reduce_from_model(y)
+    out = y.to(x.dtype)
 
     if cfg.n_shared_experts:
         sp = p.shared
-        out = out + (F.silu(xf @ sp.wg) * (xf @ sp.wi)) @ sp.wo
+        xs = xin if "shared" in split else xf
+        s = (F.silu(xs @ sp.wg) * (xs @ sp.wi)) @ sp.wo
+        out = out + (reduce_from_model(s) if "shared" in split else s)
     return out.reshape(B, S, d)
 
 

@@ -33,3 +33,8 @@ def get_config(arch: str):
         raise KeyError(f"unknown arch {arch!r}; available: {list_archs()}")
     mod = importlib.import_module(f"repro_torch.configs.{_ARCHS[arch]}")
     return mod.CONFIG
+
+
+def all_configs() -> dict:
+    """``{arch: ModelConfig}`` for every arch, in ``list_archs`` order."""
+    return {a: get_config(a) for a in list_archs()}

@@ -9,6 +9,7 @@ runs a Python loop over modules).  Entry points:
   Transformer.init_cache(B, max_seq)            -> contiguous decode cache
   Transformer.decode_step(tokens, cache, index) -> logits (B, V) fp32, cache
   cross_entropy(logits, labels, mask=None)      -> mean token CE (fp32)
+  vocab_parallel_cross_entropy(...)             -> the same, logits split over "model"
   param_count(model)                            -> number of weights
 
 Parameters are made with ``requires_grad=False``, so serving builds no
@@ -20,10 +21,16 @@ the serving steps run under ``torch.no_grad()``.
 
 A model whose parameters are DTensors (``distributed/sharding.py::
 shard_model``, the sharded train step) sets ``gather``: ``forward`` then
-runs each block on its weights gathered to full, inside the block's
-checkpoint under ``remat == "layer"`` so that the backward gathers them
-again instead of keeping them, and the embedding, final norm and
-unembedding on theirs.
+runs each block by its :func:`model_plan`: on its weights fetched in the
+plan's modes (gathered over ``"data"``, and over ``"model"`` only where
+the block does not split there), with the plan's split regions handed
+to the layer functions (their ``split``), inside the block's checkpoint
+under ``remat == "layer"`` so that the backward fetches them again
+instead of keeping them, and the embedding, final norm and unembedding
+on theirs (:func:`vocab_plan`).  Split over ``"model"``, the embedding
+is vocab-parallel (each rank looks up the ids of its vocab rows, summed
+over the axis) and so are the logits: each rank's hold its own vocab
+columns, for :func:`vocab_parallel_cross_entropy`.
 
 ``forward`` returns the reference's aux term with the logits: the sum of
 every ``moe``/``moe_swa`` layer's load-balancing loss (fp32 scalar, zero
@@ -40,7 +47,9 @@ beside a Mamba SSM on the same input).
 """
 from __future__ import annotations
 
+import contextlib
 import types
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -49,6 +58,8 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..distributed import sharding
+from ..launch.mesh import current_mesh, mesh_context
 from . import mla as mla_lib
 from . import moe as moe_lib
 from . import ssm as ssm_lib
@@ -97,12 +108,12 @@ class Block(nn.Module):
         else:
             self.mlp = MLP(cfg.d_model, cfg.d_ff, cfg.mlp_kind, dtype, device)
 
-    def _ffn(self, x, cfg):
+    def _ffn(self, x, cfg, split=frozenset()):
         """The second residual half; returns (x, its normed input)."""
         h2 = _norm(x, self.norm2, cfg)
         if self.kind in ("moe", "moe_swa"):
-            return x + moe_lib.moe_mlp(h2, self.moe, cfg), h2
-        return x + mlp(h2, self.mlp, cfg.mlp_kind), h2
+            return x + moe_lib.moe_mlp(h2, self.moe, cfg, split), h2
+        return x + mlp(h2, self.mlp, cfg.mlp_kind, "mlp" in split), h2
 
     def _mix(self, x, a, s, cfg):
         """The hybrid kinds' join of attention ``a`` and SSM ``s``."""
@@ -111,10 +122,11 @@ class Block(nn.Module):
         return x + 0.5 * (a + s)
 
     def forward(self, x, cfg, positions, cache_len=None,
-                mrope_positions=None):
+                mrope_positions=None, split=frozenset()):
         """Full sequence; returns (x, aux, cache|None): the MoE balance
         term (fp32 scalar) and, with ``cache_len``, this layer's decode
-        cache filled up to position S-1."""
+        cache filled up to position S-1.  ``split``: the regions split
+        over ``"model"`` (``Plan.split`` of :func:`model_plan`)."""
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         h = _norm(x, self.norm1, cfg)
         if self.kind in CELLS:
@@ -123,17 +135,17 @@ class Block(nn.Module):
         window = _window(self.kind, cfg)
         if self.kind == "mla":
             a, kv = mla_lib.mla_attention(h, self.attn, cfg,
-                                          positions=positions)
+                                          positions=positions, split=split)
         else:
             a, kv = attention(h, self.attn, cfg, positions=positions,
                               kind="bidir" if self.kind == "encoder"
                               else "causal", window=window,
-                              mrope_positions=mrope_positions)
+                              mrope_positions=mrope_positions, split=split)
         if self.kind in HYBRID_KINDS:
             s, st = ssm_lib.mamba_block(h, self.cell, cfg)
-            x, h2 = self._ffn(self._mix(x, a, s, cfg), cfg)
+            x, h2 = self._ffn(self._mix(x, a, s, cfg), cfg, split)
         else:
-            x, h2 = self._ffn(x + a, cfg)
+            x, h2 = self._ffn(x + a, cfg, split)
         if self.kind in ("moe", "moe_swa"):
             aux = aux + moe_lib.aux_load_balance_loss(h2, self.moe, cfg)
         cache = None
@@ -210,6 +222,96 @@ def _pad_cache_to(kv, max_seq):
     return {"k": _pad_seq(k, max_seq), "v": _pad_seq(v, max_seq), "pos": pos}
 
 
+def _keep_all(cuts: dict, units: dict) -> bool:
+    """Whether every weight of ``units`` (``{name: unit}``) keeps its
+    ``"model"`` cut on its unit (``sharding.keeps_model_cut``)."""
+    return all(sharding.keeps_model_cut(cuts.get(n), u)
+               for n, u in units.items())
+
+
+#: the regions that the sharded step can split over ``"model"``
+#: (``Plan.split``): attention's or MLA's heads ("attn") and, with them,
+#: the KV heads ("kv"; without it every rank holds all of them); the
+#: MLP's hidden units; the routed experts, whole ("experts") or each by
+#: its hidden units ("expert_hidden"); the shared experts' hidden units;
+#: the vocab of the embedding, the logits and the loss
+REGIONS = ("attn", "kv", "mlp", "experts", "expert_hidden", "shared",
+           "vocab")
+
+#: the cut dims of (``wi``, ``wg``, ``wo``) that split a feed-forward part,
+#: and the region each split is (a GELU MLP has no ``wg``: the last two)
+_FFN_CUTS = (("mlp.", {(1, 1, 0): "mlp"}),
+             ("moe.shared.", {(1, 1, 0): "shared"}),
+             ("moe.", {(0, 0, 0): "experts", (2, 2, 1): "expert_hidden"}))
+
+
+class Plan(NamedTuple):
+    """How the sharded step runs a block or the top weights: ``modes``
+    (``{name: mode}``, ``sharding.MODES``; "full" where it names none) and
+    ``split``, the :data:`REGIONS` that it splits over ``"model"``.  The
+    layer functions take ``split`` and do what it says; no other code
+    decides where the model is split."""
+    modes: dict
+    split: frozenset
+
+
+def model_plan(kind, cfg, cuts: dict) -> Plan:
+    """The :class:`Plan` of a block of ``kind`` whose weights have the
+    ``"model"`` cuts ``cuts`` (``{name within the block:
+    sharding.model_cut}``): which weights keep their ``"model"`` slice
+    ("local"), which are gathered for compute every rank repeats ("full",
+    the default: norms, the router, the recurrent cells) and which are
+    gathered for use inside a split region ("partial").  A region splits
+    only where all of its sliced weights keep whole units: attention's
+    heads (``wq`` columns and ``wo`` rows of ``head_dim``), MLA's heads,
+    the MLP's and the shared experts' hidden units, the routed experts
+    (whole experts, or the hidden units of each)."""
+    modes, split = {}, set()
+    hd = cfg.resolved_head_dim
+    if kind == "mla":
+        m = cfg.mla
+        heads = {"attn.wq_up": m.qk_nope_head_dim + m.qk_rope_head_dim,
+                 "attn.wk_up": m.qk_nope_head_dim,
+                 "attn.wv_up": m.v_head_dim, "attn.wo": m.v_head_dim}
+        if _keep_all(cuts, heads):
+            split.add("attn")
+            modes.update(dict.fromkeys(heads, "local"))
+            modes.update(dict.fromkeys(("attn.wq_down", "attn.q_norm",
+                                        "attn.wkv_down", "attn.kv_norm"),
+                                       "partial"))
+    elif kind not in CELLS and _keep_all(cuts, {"attn.wq": hd,
+                                                "attn.wo": hd}):
+        kv = ("attn.wk", "attn.wv")
+        split.add("attn")
+        modes.update({"attn.wq": "local", "attn.wo": "local"})
+        if _keep_all(cuts, dict.fromkeys(kv, hd)):
+            split.add("kv")
+        modes.update(dict.fromkeys(kv, "local" if "kv" in split
+                                   else "partial"))
+        modes.update({n: "partial" for n in ("attn.q_norm", "attn.k_norm")
+                      if n in cuts})
+    for prefix, regions in _FFN_CUTS:
+        ws = [prefix + w for w in ("wi", "wg", "wo") if prefix + w in cuts]
+        if not ws or not _keep_all(cuts, dict.fromkeys(ws, 1)):
+            continue
+        region = {d[-len(ws):]: r for d, r in regions.items()}.get(
+            tuple(cuts[n][0] for n in ws))
+        if region is not None:
+            split.add(region)
+            modes.update(dict.fromkeys(ws, "local"))
+    return Plan(modes, frozenset(split))
+
+
+def vocab_plan(cuts: dict) -> Plan:
+    """The :class:`Plan` of the top weights with ``"model"`` cuts
+    ``cuts``: the embedding (and the unembedding) keep their vocab rows,
+    and the vocab is split, where they are cut over ``"model"``."""
+    vocab = dict.fromkeys((n for n in ("embed", "unembed") if n in cuts), 1)
+    if vocab and _keep_all(cuts, vocab):
+        return Plan(dict.fromkeys(vocab, "local"), frozenset({"vocab"}))
+    return Plan({}, frozenset())
+
+
 class Transformer(nn.Module):
     """Weights are allocated uninitialised on ``device`` in ``cfg.dtype``
     (the Mamba leaves ``a_log``, ``d_skip``, ``dt_bias`` in fp32); fill
@@ -241,26 +343,51 @@ class Transformer(nn.Module):
     def unembed_weight(self):
         return self.embed.T if self.cfg.tie_embeddings else self.unembed
 
-    def _top_weights(self):
+    def _top_named(self) -> dict:
+        return {n: p for n, p in self.named_parameters()
+                if not n.startswith("layers.")}
+
+    def top_plan(self) -> Plan:
+        """The :func:`vocab_plan` of a sharded model's top weights (an
+        empty one on a model that is not sharded)."""
+        if self.gather is None:
+            return Plan({}, frozenset())
+        return vocab_plan({n: sharding.model_cut(p)
+                           for n, p in self._top_named().items()})
+
+    def _top_weights(self, plan: Plan):
         """(embed, final norm, unembed weight): the model's own, or on a
-        sharded model gathered to full."""
+        sharded model fetched in the modes of ``plan``."""
         if self.gather is None:
             return self.embed, self.final_norm, self.unembed_weight()
-        w = self.gather({n: p for n, p in self.named_parameters()
-                         if not n.startswith("layers.")})
+        w = self.gather(self._top_named(), plan.modes)
         norm = types.SimpleNamespace(scale=w["final_norm.scale"],
                                      bias=w.get("final_norm.bias"))
         embed = w["embed"]
         return embed, norm, (embed.T if self.cfg.tie_embeddings
                              else w["unembed"])
 
+    def mesh_scope(self):
+        """A context in which the current mesh is this sharded model's
+        (``launch/mesh.py::mesh_context``, unless one is current already),
+        for the collectives of its split regions and of the vocab-parallel
+        loss; a null context on a model that is not sharded."""
+        if self.gather is None or current_mesh() is not None:
+            return contextlib.nullcontext()
+        return mesh_context(self.embed.device_mesh)
+
     def _block(self, blk, *args):
-        """``blk(*args)``, on its weights gathered to full on a sharded
-        model."""
+        """``blk(*args)``, on a sharded model on its weights fetched in the
+        modes of :func:`model_plan` (in its mesh's scope, also when the
+        backward recomputes it)."""
         if self.gather is None:
             return blk(*args)
-        return functional_call(blk, self.gather(dict(blk.named_parameters())),
-                               args)
+        named = dict(blk.named_parameters())
+        plan = model_plan(blk.kind, self.cfg, {
+            n: sharding.model_cut(p) for n, p in named.items()})
+        with self.mesh_scope():
+            return functional_call(blk, self.gather(named, plan.modes), args,
+                                   {"split": plan.split})
 
     def forward(self, tokens=None, embeds=None, mrope_positions=None,
                 build_cache_len=None, last_logit_only=False):
@@ -272,10 +399,26 @@ class Transformer(nn.Module):
         balance terms.  ``last_logit_only`` unembeds the last position
         only.  Under ``cfg.remat == "layer"``, with grad enabled and no
         cache being built, each block is checkpointed: its activations are
-        recomputed in the backward pass instead of kept."""
+        recomputed in the backward pass instead of kept.  With the vocab
+        split over ``"model"`` (module docstring) the logits are this
+        rank's vocab columns."""
+        with self.mesh_scope():
+            return self._forward(tokens, embeds, mrope_positions,
+                                 build_cache_len, last_logit_only)
+
+    def _forward(self, tokens, embeds, mrope_positions, build_cache_len,
+                 last_logit_only):
         cfg = self.cfg
-        embed, final_norm, unembed = self._top_weights()
-        if embeds is None:
+        top = self.top_plan()
+        embed, final_norm, unembed = self._top_weights(top)
+        split_vocab = "vocab" in top.split
+        if embeds is None and split_vocab:
+            # vocab-parallel: this rank's rows, zeros for the others' ids
+            ids = tokens.long() - sharding.model_rank() * embed.shape[0]
+            mine = (ids >= 0) & (ids < embed.shape[0])
+            x = F.embedding(torch.where(mine, ids, 0), embed)
+            x = sharding.reduce_from_model(torch.where(mine[..., None], x, 0))
+        elif embeds is None:
             # embed[tokens]'s values; its backward is the embedding-gradient
             # kernel, not the indexing one
             x = F.embedding(tokens, embed)
@@ -300,6 +443,8 @@ class Transformer(nn.Module):
         x = _norm(x, final_norm, cfg)
         if last_logit_only:
             x = x[:, -1:]
+        if split_vocab:
+            x = sharding.copy_to_model(x)
         logits = x @ unembed
         if build_cache_len is not None:
             return logits, aux_total, caches
@@ -383,6 +528,29 @@ def cross_entropy(logits, labels, mask=None):
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
     nll = lse - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def vocab_parallel_cross_entropy(logits, labels, mask=None):
+    """:func:`cross_entropy` of logits split over ``"model"``: ``logits``
+    (..., V / m) are this rank's vocab columns (rank r's from ``r * V /
+    m``).  The max is all-reduced without a gradient, the sum of exps and
+    the gold logit (zero on the ranks that do not hold it) are summed over
+    the axis, so no rank builds the full logits; every rank returns the
+    same loss."""
+    logits = stat(logits)
+    V = logits.shape[-1]
+    mx = sharding.all_reduce_max(logits.max(dim=-1).values)
+    sumexp = sharding.reduce_from_model(
+        torch.exp(logits - mx[..., None]).sum(dim=-1))
+    ids = labels.long() - sharding.model_rank() * V
+    mine = (ids >= 0) & (ids < V)
+    gold = torch.gather(logits, -1, torch.where(mine, ids, 0)[..., None])
+    gold = sharding.reduce_from_model(torch.where(mine, gold[..., 0], 0.0))
+    nll = torch.log(sumexp) + mx - gold
     if mask is None:
         return nll.mean()
     mask = mask.float()

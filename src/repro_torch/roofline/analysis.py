@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple
 
 from . import hardware as hw
 
@@ -47,6 +48,59 @@ def active_params(cfg) -> float:
         if ".moe.w" in path and ".shared." not in path:
             n *= cfg.top_k / max(1, cfg.n_experts)   # routed experts
         total += n
+    return total
+
+
+class TrainPlan(NamedTuple):
+    """The sharded train step's plan of a config on a mesh
+    (:func:`train_plan`): ``modes``, ``{name: mode}`` of every parameter
+    (``sharding.MODES``); ``layers``, each layer's regions split over
+    ``"model"`` (``models/transformer.py::REGIONS``); ``top``, the top
+    weights' ("vocab" where the vocab is split)."""
+    modes: dict
+    layers: list
+    top: frozenset
+
+
+def train_plan(cfg, sizes: dict) -> TrainPlan:
+    """The :class:`TrainPlan` on a mesh of ``sizes``: each block's by
+    ``models/transformer.py::model_plan``, the top weights' by its
+    ``vocab_plan`` (the functions the step runs), fed the ``"model"`` cuts
+    of ``param_specs``; mode "full" where they name none."""
+    from ..distributed.sharding import param_specs, spec_model_cut
+    from ..models.transformer import model_plan, vocab_plan
+
+    shapes = {n: s for n, (s, _) in param_shapes(cfg).items()}
+    specs = param_specs(shapes, sizes)
+    cuts = {n: spec_model_cut(s, specs[n], sizes) for n, s in shapes.items()}
+    modes = dict.fromkeys(shapes, "full")
+    layers = []
+    kinds = [k for k, c in cfg.segments for _ in range(c)]
+    for i, kind in enumerate(kinds):
+        pre = f"layers.{i}."
+        plan = model_plan(kind, cfg, {n[len(pre):]: c for n, c in
+                                      cuts.items() if n.startswith(pre)})
+        modes.update({pre + n: m for n, m in plan.modes.items()})
+        layers.append(plan.split)
+    top = vocab_plan({n: c for n, c in cuts.items()
+                      if not n.startswith("layers.")})
+    modes.update(top.modes)
+    return TrainPlan(modes, layers, top.split)
+
+
+def active_params_per_rank(cfg, sizes: dict) -> float:
+    """:func:`active_params` of one rank of the sharded train step: a
+    weight the plan keeps split over ``"model"`` (:func:`train_plan`)
+    counts 1/m, the rest in full (every rank of the axis repeats that
+    compute)."""
+    modes = train_plan(cfg, sizes).modes
+    m = sizes.get("model", 1)
+    total = 0.0
+    for path, (shape, _) in param_shapes(cfg).items():
+        n = float(math.prod(shape))
+        if ".moe.w" in path and ".shared." not in path:
+            n *= cfg.top_k / max(1, cfg.n_experts)
+        total += n / (m if modes[path] == "local" else 1)
     return total
 
 
@@ -131,9 +185,14 @@ def fabric(sizes: dict, axis: str) -> str:
 
 
 class _Wire:
+    """Wire bytes by fabric and by collective, and ``by_axis``: ``{"kind/
+    axis": bytes}`` as ``sharding.wire_counts`` counts a step's (an
+    all-gather's received bytes, an all-reduce's or a reduce-scatter's
+    operand)."""
+
     def __init__(self, sizes: dict):
         self.sizes = sizes
-        self.out = {"nvlink": 0.0, "net": 0.0, "by_kind": {}}
+        self.out = {"nvlink": 0.0, "net": 0.0, "by_kind": {}, "by_axis": {}}
 
     def add(self, kind: str, axis: str, nbytes: float, times: float = 1):
         g = self.sizes[axis]
@@ -145,27 +204,53 @@ class _Wire:
         k = self.out["by_kind"].setdefault(kind, {"count": 0, "bytes": 0.0})
         k["count"] += times
         k["bytes"] += wire
+        key = f"{kind}/{axis}"
+        self.out["by_axis"][key] = self.out["by_axis"].get(key, 0.0) + (
+            nbytes * frac if kind == "all-gather" else nbytes) * times
 
 
 def plan_collective_bytes(cfg, mesh_sizes: dict, kind: str, *,
-                          microbatches: int = 1) -> dict:
+                          microbatches: int = 1, tokens: int = 0) -> dict:
     """Per-rank wire bytes of one step of the port's plan on a mesh of
     ``mesh_sizes`` (``{axis: size}``, axes in mesh order), by fabric and by
-    collective: ``{"nvlink", "net", "by_kind"}``.
+    collective: ``{"nvlink", "net", "by_kind"}``; ``tokens`` are the
+    rank's tokens a step (its rows x the sequence).
 
-    Counts the plan of ``distributed/sharding.py``, not HLO:
+    Counts the plan of ``distributed/sharding.py``, not HLO.  ``train``
+    (the sharded step, split over ``"model"``; its :func:`train_plan`):
 
-    * every parameter is all-gathered to full over the mesh axes that
-      shard it, in mesh order, once a forward; under ``remat == "layer"``
-      a block's weights once more for the backward's recompute;
-    * ``train``: the backward returns each gradient to its shard in fp32:
-      a reduce-scatter over ``"data"`` where the weight is sharded there,
-      an all-reduce where it is replicated, an all-reduce over ``"model"``
-      for a weight replicated there; these and the gathers happen once a
-      microbatch; then one all-reduce of each fp32 shard over ``"pod"``
-      (``grad_compression`` sums its int8 values as int32 there, as the
-      reference's ``psum``: the same 4 bytes an element);
+    * a weight is all-gathered over ``"data"`` where it is sharded there,
+      and over ``"model"`` only where the plan gathers it ("full" or
+      "partial": an off-boundary KV projection, MLA's ``wq_down``, the
+      recurrent cells), once a forward and, under ``remat == "layer"``,
+      once more for a block's recompute: a split weight moves 1/m of its
+      bytes over ``"data"``;
+    * the backward returns each gradient to its shard in fp32: over
+      ``"model"`` a "partial" weight's is reduce-scattered (all-reduced
+      where it is replicated there), a weight replicated there all-reduced
+      (its mean), a split one stays; over ``"data"`` a reduce-scatter
+      where the weight is sharded there, else an all-reduce; these and the
+      gathers happen once a microbatch; then one all-reduce of each fp32
+      shard over ``"pod"`` (``grad_compression`` sums its int8 values as
+      int32 there, as the reference's ``psum``: the same 4 bytes an
+      element);
+    * activations over ``"model"``, per microbatch: each split attention,
+      MLP or shared-expert MLP all-reduces its output (the model dtype)
+      in the forward and its input's gradient in the backward; a split
+      MoE its fp32 combine and, in the backward, its input's and its
+      gates' gradients; under ``remat == "layer"`` the recompute repeats
+      the forward all-reduces up to the block's last saved tensor
+      (PyTorch's checkpoint stops there): all but a split MLP's, after
+      which a block runs only its residual add (an MoE block's balance
+      term runs after its experts, so it repeats them all); a split vocab
+      all-reduces the
+      embedding's output, the unembedding's input gradient, and the
+      loss's max, sum of exps and gold logit (fp32, a token each);
     * scalars (the loss, the norm, the MoE fractions) are not counted.
+
+    Serving cells (``SERVE_PLAN``, hypothetical) gather every parameter
+    to full over the mesh axes that shard it, once a pass, and move no
+    activation.
     """
     from ..distributed.sharding import param_specs
 
@@ -175,14 +260,19 @@ def plan_collective_bytes(cfg, mesh_sizes: dict, kind: str, *,
     wire = _Wire(mesh_sizes)
     train = kind == "train"
     passes = microbatches if train else 1
+    plan = train_plan(cfg, mesh_sizes) if train else None
+    modes = plan.modes if train else {}
     for name, (shape, item) in shapes.items():
         spec = specs[name]
+        mode = modes.get(name, "full")
         elems = float(math.prod(shape))
         sharded = [a for a in axes if a in spec]
         gathers = passes * (2 if train and cfg.remat == "layer"
                             and name.startswith("layers.") else 1)
         local = elems * item / math.prod(mesh_sizes[a] for a in sharded)
         for a in sharded:                       # forward gathers
+            if a == "model" and mode == "local":
+                continue
             local *= mesh_sizes[a]
             wire.add("all-gather", a, local, gathers)
         if not train:
@@ -190,6 +280,8 @@ def plan_collective_bytes(cfg, mesh_sizes: dict, kind: str, *,
         g = elems * 4.0                          # fp32 gradient, full
         if "model" in axes:
             if "model" in sharded:
+                if mode == "partial":
+                    wire.add("reduce-scatter", "model", g, passes)
                 g /= mesh_sizes["model"]
             else:
                 wire.add("all-reduce", "model", g, passes)
@@ -201,4 +293,34 @@ def plan_collective_bytes(cfg, mesh_sizes: dict, kind: str, *,
                 wire.add("all-reduce", "data", g, passes)
         if "pod" in axes:
             wire.add("all-reduce", "pod", g)
+    if train and tokens and "model" in axes:
+        _activation_all_reduces(wire, cfg, plan, tokens / microbatches,
+                                passes)
     return wire.out
+
+
+def _activation_all_reduces(wire, cfg, plan: TrainPlan, tok: float,
+                            passes: int) -> None:
+    """The split regions' all-reduces over ``"model"`` of ``passes``
+    microbatches of ``tok`` tokens a rank (:func:`plan_collective_bytes`)."""
+    item = 4 if cfg.dtype == "float32" else 2
+    act = tok * cfg.d_model * item
+    remat = cfg.remat == "layer"
+    for split in plan.layers:
+        routed = split & {"experts", "expert_hidden"}
+        fwd = ([act] if "attn" in split else []) + (
+            [tok * cfg.d_model * 4] if routed else []) + (
+            [act] if split & {"mlp", "shared"} else [])
+        rec = fwd[:-1] if "mlp" in split else fwd
+        bwd = ([act] if "attn" in split else []) + (
+            [act] if split & {"mlp", "shared"} else [])
+        if routed:
+            bwd.append(tok * cfg.top_k * 4)              # the gates
+            if "shared" not in split:                    # the input's own
+                bwd.append(act)
+        for nbytes in fwd + bwd + (rec if remat else []):
+            wire.add("all-reduce", "model", nbytes, passes)
+    if "vocab" in plan.top:
+        wire.add("all-reduce", "model", act, passes)      # the embedding
+        wire.add("all-reduce", "model", act, passes)      # logits' input
+        wire.add("all-reduce", "model", tok * 4, 3 * passes)   # the loss

@@ -19,14 +19,16 @@ With a mesh (``launch/mesh.py``; axes among ``"pod"``, ``"data"``,
 microbatch, takes its own rows: rank (pod p, data d) of an (n_pod,
 n_data) mesh the rows of slice ``p * n_data + d`` of ``n_pod * n_data``,
 the reference's ``P(("pod", "data"))`` layout.  Ranks along ``"model"``
-take the same rows (they do not split the batch).  The step runs inside
+take the same rows (they split the work on them, not the batch).  The step runs inside
 ``mesh_context(mesh)``, so MoE balance terms see the whole batch.  Loss
 and aux are averaged over every rank.
 
 The parameters must be DTensors on the mesh (``distributed/sharding.py::
 shard_model``; ``Trainer(mesh=...)`` makes them so): each block runs on
-its weights gathered to full, and the backward returns each gradient to
-its shard, averaged over ``"data"`` (``sharding`` module docstring).
+its weights gathered over ``"data"`` and split over ``"model"`` as the
+reference's plan (heads, hidden units, experts, vocab; the ``sharding``
+module docstring), and the backward returns each gradient to its
+shard, averaged over ``"data"``.
 Gradients, AdamW's ``m`` and ``v`` (``adamw.init`` of the sharded
 parameters) and the residual of ``grad_compression`` are DTensors placed
 like their parameter.  The gradients are then averaged over ``"pod"``,
@@ -42,7 +44,7 @@ import torch.distributed as dist
 
 from ..distributed import sharding
 from ..launch.mesh import mesh_context
-from ..models.transformer import cross_entropy
+from ..models.transformer import cross_entropy, vocab_parallel_cross_entropy
 from ..optim import adamw, compression
 
 AUX_LOSS_WEIGHT = 0.01
@@ -53,14 +55,21 @@ def make_loss_fn(cfg):
     """(model, batch) -> (loss + 0.01 * aux, (loss, aux)).  Decoders:
     next-token CE of ``logits[:, :-1]`` against ``tokens[:, 1:]``;
     encoder-only archs: CE of the logits of ``embeds`` against
-    ``labels``."""
+    ``labels``.  A model whose plan splits the vocab over ``"model"``
+    (``Transformer.top_plan``) takes the vocab-parallel CE."""
     def loss_fn(model, batch):
+        with model.mesh_scope():
+            return _loss(model, batch)
+
+    def _loss(model, batch):
+        ce = (vocab_parallel_cross_entropy if "vocab" in model.top_plan().split
+              else cross_entropy)
         if cfg.encoder_only:
             logits, aux = model(embeds=batch["embeds"])
-            loss = cross_entropy(logits, batch["labels"])
+            loss = ce(logits, batch["labels"])
         else:
             logits, aux = model(tokens=batch["tokens"])
-            loss = cross_entropy(logits[:, :-1], batch["tokens"][:, 1:])
+            loss = ce(logits[:, :-1], batch["tokens"][:, 1:])
         return loss + AUX_LOSS_WEIGHT * aux, (loss, aux)
     return loss_fn
 
@@ -124,13 +133,15 @@ def _local_rows(batch, mesh, axes):
     return {name: t[r * k:(r + 1) * k] for name, t in batch.items()}
 
 
-def _mean(tree: dict, group) -> dict:
-    """Exact fp32 mean of each leaf over the ranks of ``group``."""
+def _mean(tree: dict, mesh, axis: str) -> dict:
+    """Exact fp32 mean of each leaf over the ranks of ``mesh``'s
+    ``axis``."""
+    group = mesh.get_group(axis)
     n = dist.get_world_size(group)
     out = {}
     for name, t in tree.items():
         t = t.float()            # a fresh tensor or one this step owns
-        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+        sharding.all_reduce(t, group, axis)
         out[name] = t / n
     return out
 
@@ -160,7 +171,7 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
             for n, e in err.items():
                 error[n].copy_(e)            # the DTensors' own storage
         elif "pod" in axes:
-            local = _mean(local, mesh.get_group("pod"))
+            local = _mean(local, mesh, "pod")
         state = {"m": {n: t.to_local() for n, t in opt_state["m"].items()},
                  "v": {n: t.to_local() for n, t in opt_state["v"].items()},
                  "count": opt_state["count"]}
@@ -190,7 +201,7 @@ def make_train_step(cfg, opt_cfg: adamw.AdamWConfig, *,
         metrics = sharded_update(grads, opt_state, params)
         stats = torch.stack([loss, aux]).float()
         for axis in axes:
-            stats = _mean({"s": stats}, mesh.get_group(axis))["s"]
+            stats = _mean({"s": stats}, mesh, axis)["s"]
         metrics.update(loss=stats[0], aux_loss=stats[1])
         return metrics
 

@@ -92,6 +92,10 @@ class LatencyHistogram:
     def add(self, latencies_s) -> None:
         self._h.add_many(np.asarray(latencies_s, np.float64))
 
+    def percentile(self, q: float) -> float:
+        """Quantile at ``q`` in [0, 100]; exact at q=0 and q=100."""
+        return self._h.quantile(q / 100.0)
+
     def to_dict(self) -> dict:
         s = self._h.summary()
         del s["p999_s"]         # per-kind blocks carry no p99.9

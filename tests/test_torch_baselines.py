@@ -8,6 +8,7 @@ JAX package's; the closed- and open-loop driver reports equal its too.
 The port's registry carries ``FIVE_TIERS`` with its device tier in
 ``jax-nbtree``'s place.
 """
+import dataclasses
 import json
 
 import numpy as np
@@ -152,3 +153,51 @@ def test_driver_cli_all_tiers_on_cpu(tmp_path, capsys):
     assert len({r["stats"]["total_pairs"] for r in reps}) == 1
     assert all(r["stats"]["pending_debt"] == 0 for r in reps)
     assert capsys.readouterr().out.count("delete-churn") == 5
+
+
+def test_bulk_btree_engine_matches_jax():
+    """``BulkBTreeEngine`` (``btree-bulk``, static): built from the same
+    keys, every QUERY and RANGE answer and charged second, its stats and
+    its live dump equal the JAX package's; an INSERT or DELETE raises
+    ``UnsupportedOp`` in both."""
+    from repro.core import engine_api as jea
+    from repro_torch.core import engine_api as tea
+
+    rng = np.random.default_rng(5)
+    keys = rng.choice(1 << 20, 4096, replace=False).astype(np.uint64) + 1
+    vals = rng.integers(0, 1 << 30, 4096)
+    ours, theirs = (tea.BulkBTreeEngine(keys, vals),
+                    jea.BulkBTreeEngine(keys, vals))
+    assert ours.name == theirs.name == "btree-bulk"
+    assert "btree-bulk" not in available_engines()
+    n = 512
+    qk = np.concatenate([keys[:n // 2], rng.integers(1, 1 << 20, n // 2)
+                         .astype(np.uint64)])
+    kinds = np.array([int(tea.OpKind.QUERY)] * n + [int(tea.OpKind.RANGE)] * 64)
+    lo = rng.integers(1, 1 << 20, 64).astype(np.uint64)
+    b = dict(kinds=kinds, keys=np.concatenate([qk, lo]),
+             vals=np.zeros(n + 64, np.int64),
+             his=np.concatenate([np.zeros(n, np.uint64), lo + 5000]))
+    a = ours.apply(tea.OpBatch(**b))
+    w = theirs.apply(jea.OpBatch(**b))
+    assert np.array_equal(a.found, w.found)
+    assert np.array_equal(a.values, w.values)
+    assert np.array_equal(a.latency_s, w.latency_s)
+    assert a.found[:n // 2].all()
+    for x, y in zip(a.range_hits, w.range_hits):
+        if x is None:
+            assert y is None
+        else:
+            assert all(np.array_equal(p, q) for p, q in zip(x, y))
+    assert ours.count_live() == theirs.count_live() == 4096
+    assert all(np.array_equal(x, y) for x, y in zip(ours.dump_live(),
+                                                    theirs.dump_live()))
+    assert _canon(dataclasses.asdict(ours.stats())) == _canon(
+        dataclasses.asdict(theirs.stats()))
+    for kind in (tea.OpKind.INSERT, tea.OpKind.DELETE):
+        one = dict(kinds=np.array([int(kind)]), keys=keys[:1],
+                   vals=np.zeros(1, np.int64), his=np.zeros(1, np.uint64))
+        with pytest.raises(tea.UnsupportedOp):
+            ours.apply(tea.OpBatch(**one))
+        with pytest.raises(jea.UnsupportedOp):
+            theirs.apply(jea.OpBatch(**one))

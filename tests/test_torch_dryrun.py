@@ -7,9 +7,12 @@ their statuses), ``active_params`` and ``model_flops`` for every arch,
 (``tests/test_obs.py:321``), and, on the four reduced cells of the
 reference's ``test_dryrun_lowering_path`` (``tests/test_distributed.py:
 139-153``) over (2, 2, 2) mesh sizes, each record's per-rank parameter
-bytes against the bytes JAX's ``param_specs`` and ``eval_shape`` give.
-The port alone: the whole dry-run over all 40 cells x {single, multi} on
-meta, and its CLI writing and resuming a JSONL.
+bytes against the bytes JAX's ``param_specs`` and ``eval_shape`` give;
+``registry.all_configs`` against JAX's.  The port alone: the train plan's
+count, split over "model" (qwen3-8b reduced on a (2, 2) mesh; a dense
+and a MoE ``train_4k`` cell on 2 x 16 x 16: per-rank FLOPs and the
+gathers along "model" and "data"), the whole dry-run over all 40 cells x
+{single, multi} on meta, and its CLI writing and resuming a JSONL.
 """
 import dataclasses
 import json
@@ -113,24 +116,89 @@ def test_lower_cell_on_reduced_cells(kind, arch):
 
 
 def test_plan_collective_bytes_counts_the_plan():
-    """A (2, 2) data x model mesh on one node, qwen3-8b reduced: the
-    forward's and the recompute's gathers, and per weight a
-    reduce-scatter over "data" where it is sharded there."""
+    """A (2, 2) data x model mesh on one node, qwen3-8b reduced.  Train
+    (the plan split over "model"): every weight is gathered over "data"
+    only, a split one 1/2 of it, once a forward and once more for a
+    layer's recompute; per weight a reduce-scatter over "data" where it
+    is sharded there; the activations' all-reduces over "model" come with
+    the tokens.  The serving layout (hypothetical) gathers every weight
+    over both axes, once."""
     cfg = registry.get_config("qwen3-8b").reduced()
     sizes = {"data": 2, "model": 2}
     train = analysis.plan_collective_bytes(cfg, sizes, "train")
     serve = analysis.plan_collective_bytes(cfg, sizes, "decode")
     assert train["net"] == serve["net"] == 0.0      # 4 ranks, one node
-    gathers = serve["by_kind"]["all-gather"]
-    assert train["by_kind"]["all-gather"]["bytes"] > gathers["bytes"]
+    shapes = analysis.param_shapes(cfg)
+    specs = param_specs({n: shape for n, (shape, _) in shapes.items()},
+                        sizes)
+    plan = analysis.train_plan(cfg, sizes)
+    modes = plan.modes
+    assert modes["layers.0.attn.wq"] == modes["layers.0.mlp.wo"] == "local"
+    assert plan.layers == [{"attn", "kv", "mlp"}] * cfg.n_layers
+    assert plan.top == {"vocab"}
+    assert modes["embed"] == "local" and modes["final_norm.scale"] == "full"
+    want = sum(math.prod(s) * it / (2 if modes[n] == "local" else 1) / 2
+               * (2 if n.startswith("layers.") else 1)
+               for n, (s, it) in shapes.items() if "data" in specs[n])
+    assert train["by_axis"]["all-gather/data"] == want
+    assert "all-gather/model" not in train["by_axis"]
+    assert serve["by_axis"]["all-gather/model"] > 0
     assert "reduce-scatter" not in serve["by_kind"]
-    specs = param_specs({n: shape for n, (shape, _) in
-                         analysis.param_shapes(cfg).items()}, sizes)
     n_data = sum("data" in s for s in specs.values())
     assert train["by_kind"]["reduce-scatter"]["count"] == n_data
+    acts = analysis.plan_collective_bytes(cfg, sizes, "train", tokens=64)
+    assert (acts["by_axis"]["all-reduce/model"]
+            > train["by_axis"]["all-reduce/model"])
     assert analysis.fabric({"pod": 2, "data": 16, "model": 16},
                            "model") == "net"
     assert analysis.fabric({"data": 2, "model": 4}, "model") == "nvlink"
+
+
+@pytest.mark.parametrize("arch", ["qwen3-8b", "mixtral-8x22b"])
+def test_train_4k_counts_the_split_plan(arch):
+    """A dense and a MoE ``train_4k`` cell on 2 x 16 x 16: the per-rank
+    FLOPs count each weight the plan splits over "model" 1/16 and
+    attention's scores 1/16; over "model" only the exception weights are
+    gathered (mixtral's 8 KV heads do not divide 16 ranks: ``wk`` and
+    ``wv``, once a forward and once for the recompute; qwen3-8b's 8 as
+    well), each moving 15/16 of its bytes; a split weight crosses "data"
+    as 1/16 of itself."""
+    cfg = registry.get_config(arch)
+    sizes = {"pod": 2, "data": 16, "model": 16}
+    rec = dryrun.lower_cell(arch, "train_4k", sizes)
+    assert rec["status"] == "ok" and rec["plan"] == dryrun.PLAN
+    modes = analysis.train_plan(cfg, sizes).modes
+    pshapes = analysis.param_shapes(cfg)
+    tokens = rec["rows_per_rank"] * 4096
+    passes = 4                                     # remat "layer"
+    active = 0.0
+    for n, (s, _) in pshapes.items():
+        e = float(math.prod(s))
+        if ".moe.w" in n and ".shared." not in n:
+            e *= cfg.top_k / cfg.n_experts
+        active += e / (16 if modes[n] == "local" else 1)
+    attn = dryrun.attention_flops(cfg, shapes.SHAPES["train_4k"],
+                                  rec["rows_per_rank"])
+    assert rec["roofline"]["flops_per_dev"] == pytest.approx(
+        passes * 2 * active * tokens + passes * attn / 16)
+    assert active < analysis.active_params(cfg) / 8
+    gathered = {n.split(".", 2)[2] for n, m in modes.items()
+                if m != "local" and n.startswith("layers.")
+                and "model" in param_specs(
+                    {n: pshapes[n][0]}, sizes)[n]}
+    assert gathered == {"attn.wk", "attn.wv"}
+    wires = analysis.plan_collective_bytes(cfg, sizes, "train",
+                                           tokens=tokens)
+    kv = sum(math.prod(s) * it for n, (s, it) in pshapes.items()
+             if n.endswith(("attn.wk", "attn.wv")))
+    assert wires["by_axis"]["all-gather/model"] == pytest.approx(
+        kv * 15 / 16 * 2)
+    split_bytes = sum(math.prod(s) * it for n, (s, it) in pshapes.items()
+                      if modes[n] == "local" and n.startswith("layers."))
+    assert wires["by_axis"]["all-gather/data"] >= split_bytes / 16 * 15 / 16
+    assert rec["roofline"]["t_collective"] == pytest.approx(
+        wires["nvlink"] / hardware.H100[hardware.PLANNED]["nvlink_bw"]
+        + wires["net"] / hardware.H100[hardware.PLANNED]["net_bw"])
 
 
 def test_dryrun_all_cells_on_meta(tmp_path, capsys):
@@ -178,3 +246,12 @@ def test_dryrun_cli_writes_and_resumes(tmp_path):
                         "--mesh", "both", "--out", str(out)])
     assert [r["mesh_kind"] for r in more] == ["multi"]
     assert len(out.read_text().splitlines()) == 2
+
+
+def test_all_configs_match_jax():
+    """``registry.all_configs`` equals the JAX package's, arch by arch and
+    field by field, in ``list_archs`` order."""
+    got, want = registry.all_configs(), jregistry.all_configs()
+    assert list(got) == list(want) == registry.list_archs()
+    for arch in got:
+        assert dataclasses.asdict(got[arch]) == dataclasses.asdict(want[arch])

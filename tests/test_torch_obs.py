@@ -166,3 +166,23 @@ def test_tracer_chrome_json_matches_jax(tmp_path):
 ], ids=["not-a-dict", "not-a-list", "bad-events"])
 def test_validate_chrome_trace_matches_jax(obj):
     assert validate_chrome_trace(obj) == jax_validate(obj) != []
+
+
+@pytest.mark.parametrize("dist", ["lognormal", "uniform", "bimodal"])
+def test_latency_histogram_percentile_matches_jax(dist):
+    """``workloads/driver.py``'s ``LatencyHistogram.percentile`` equals the JAX
+    package's at every quantile, exact at 0 and 100, and its report block
+    too."""
+    from repro.workloads.driver import LatencyHistogram as JaxLatency
+    from repro_torch.workloads.driver import LatencyHistogram
+
+    xs = _samples(dist)
+    ours, theirs = LatencyHistogram(), JaxLatency()
+    ours.add(xs)
+    theirs.add(xs)
+    assert ours.count == theirs.count == len(xs)
+    for q in (0.0, 1.0, 50.0, 90.0, 99.0, 99.9, 100.0):
+        assert ours.percentile(q) == theirs.percentile(q)
+    assert ours.percentile(0.0) == xs.min()
+    assert ours.percentile(100.0) == xs.max()
+    assert ours.to_dict() == theirs.to_dict()
