@@ -113,8 +113,8 @@ network)::
    ``repro_torch.launch.dryrun`` over all 40 cells x {single, multi} on
    meta: the statuses of ``shapes.all_cells``, every ``run`` cell ``ok``;
    prints each cell's per-rank GB, whether it fits in 80 GB and the three
-   roofline terms; the prefill and decode cells are marked hypothetical
-   (the port has no sharded serving path).  11d:
+   roofline terms; the prefill and decode cells count the sharded
+   serving steps' plan (``dryrun.SERVING_PLAN``, run in phase 13).  11d:
    ``roofline.analysis.measured_kernel_table`` over phase 2's
    ``dispatch_stats``; prints each impl's calls and host time only (the
    stats time the host's enqueue, so they bound no device rate).  Sharded steps
@@ -142,6 +142,28 @@ network)::
    first ``m`` and ``v``) within 10c's fixed ``GRAD_ATOL``, every weight
    within 2 x LR (each rank holds its own shards against the same pieces
    of the replicated state).
+13. (Runs after phase 12.)  Sharded serving: ``serve/steps.py``'s
+   prefill and greedy decode steps on a model placed by ``shard_model``,
+   two spawned ranks on the one card over ``gloo`` as in phase 12, mesh
+   (data, model) = (1, 2); no kernel of phase 1 is on this path, and every
+   rank's launch counts must be 0.  13a: qwen3-8b at full width and depth
+   (bf16; the ranks build their shards in turn, so the card never holds
+   two full copies); 13b: deepseek-moe-16b at full width, depth cut to 3
+   of 28 (expert-parallel, 32 of 64 experts a rank); each a prefill of 4
+   x 256 random tokens and 32 greedy steps: tokens equal on both ranks,
+   the last logits (4, 1, V) whole on each; prints the prefill ms, the
+   decode step p50/p99, each rank's peak memory and parameters held, and
+   the bytes it moved by collective and axis in the prefill and a decode
+   step, which must equal ``analysis.plan_collective_bytes`` (nothing
+   gathered along "model").  13c (fp32, TF32 off; ``SERVE_EXACT``): each
+   rank runs the one-rank steps beside on the same weights; the greedy
+   tokens must be equal, the last logits within 1e-4 and the MoE's routed
+   and dropped slots equal: qwen3-8b at 2 layers on (1, 2); deepseek-
+   moe-16b at 2 layers on (1, 2), expert-parallel decode, and on (2, 1),
+   4 rows, where the reference's dispatch falls back to one group (the
+   rows gathered over data); hymba-1.5b at 2 layers on (2, 1), one row,
+   16 steps from an empty cache of 24 slots split over data, 12 a rank,
+   so that both ranks write slots and add to the softmax merge.
 6. Durable open-loop ingest with a crash and a restart: ``torch-nbtree``
    at phase 2's shape under ``repro_torch.ingest.IngestFrontend`` with a
    WAL and LSN-keyed snapshots on local disk; a preload of 2^22 keys over
@@ -180,7 +202,7 @@ network)::
    (>= 2^18 pairs) out without a capped range scan.
 
 Kernel launch counters are zeroed just before each path (2-3, 4, the
-measured runs of 8a and 8b, 9a, 10a, 11a, 12a-12b, 6, 7) and read just
+measured runs of 8a and 8b, 9a, 10a, 11a, 12a-12b, 13a-13b, 6, 7) and read just
 after; every kernel
 must have launched on its own path (the four NB-tree kernels of the write
 side and the point reads on phase 6's too, and those and
@@ -2933,9 +2955,9 @@ def phase_sharded(dev, args, nbtree_stats, cfg=None) -> dict:
             raise AssertionError(f"11c {mesh_kind}: {got} != {expect}")
     log(f"  11c: repro_torch.launch.dryrun over {len(want)} cells x "
         f"{{single, multi}} on meta: {len(recs)} records, the statuses of "
-        "all_cells, every run cell ok; per rank (train cells, the plan "
-        f"the port runs: {dryrun.PLAN}; prefill and decode cells, marked "
-        f"[hypothetical]: {dryrun.SERVE_PLAN}):")
+        "all_cells, every run cell ok; per rank (train cells: "
+        f"{dryrun.PLAN}; prefill and decode cells, marked [serving]: "
+        f"{dryrun.SERVING_PLAN}):")
     log("    mesh   arch x shape: per-rank GB (params, opt, activation "
         "estimate), fits 80 GB; t_compute, t_memory, t_collective s, "
         "bottleneck")
@@ -2943,7 +2965,7 @@ def phase_sharded(dev, args, nbtree_stats, cfg=None) -> dict:
         if r["status"] != "ok":
             continue
         b, ro = r["per_rank_bytes"], r["roofline"]
-        tag = "" if r["plan"] == dryrun.PLAN else " [hypothetical]"
+        tag = "" if r["plan"] == dryrun.PLAN else " [serving]"
         log(f"    {r['mesh']:>7} {r['arch']} x {r['shape']}{tag}: "
             f"{b['total'] / 1e9:.3f} ({b['params'] / 1e9:.3f}, "
             f"{b.get('opt_m_v', 0.0) / 1e9:.3f}, "
@@ -3105,9 +3127,10 @@ def tp_rank(rank, port, out, seed, dev_type, runs, exact, shapes) -> None:
         dist.destroy_process_group()
 
 
-def spawn_ranks(target, n: int, args: tuple, timeout: float) -> None:
+def spawn_ranks(phase: str, target, n: int, args: tuple,
+                timeout: float) -> None:
     """``target(rank, *args)`` in ``n`` spawned processes, every join
-    bounded; a rank that hangs or fails fails the phase."""
+    bounded; a rank that hangs or fails fails ``phase``."""
     ctx = torch.multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=target, args=(r, *args)) for r in range(n)]
     for p in procs:
@@ -3122,7 +3145,7 @@ def spawn_ranks(target, n: int, args: tuple, timeout: float) -> None:
             p.kill()
             p.join(timeout=10)
     if hung or any(p.exitcode for p in procs):
-        raise AssertionError(f"phase 12: rank exit codes "
+        raise AssertionError(f"{phase}: rank exit codes "
                              f"{[p.exitcode for p in procs]}"
                              + (" (hung, killed)" if hung else ""))
 
@@ -3153,7 +3176,7 @@ def phase_tp(dev, args, cfgs=None) -> None:
         f"transport), compute stays on the device; card: {smi}")
     with tempfile.TemporaryDirectory() as tmp:
         out = Path(tmp) / "tp.json"
-        spawn_ranks(tp_rank, TP["ranks"],
+        spawn_ranks("phase 12", tp_rank, TP["ranks"],
                     (free_port(), str(out), args.seed, dev.type, runs, exact,
                      (TP, TP_EXACT)), timeout=600)
         res = json.loads(out.read_text())
@@ -3222,6 +3245,279 @@ def phase_tp(dev, args, cfgs=None) -> None:
             raise AssertionError(f"12c {cfg.name}: the split step differs "
                                  "from the replicated one")
     log(f"  phase 12 took {time.perf_counter() - t0:.1f} s (rank 0 from its "
+        "process group up: " + ", ".join(f"{k} {v:.1f} s" for k, v in
+                                          res["times"].items()) + ")")
+
+
+# ----------------------------------------------------------------- phase 13
+#: 13a-13b: two ranks on the card, mesh (data, model) = (1, 2), bf16, a
+#: prefill of ``batch`` x ``prompt`` tokens then ``steps`` greedy steps;
+#: ``depth``: the layers each arch keeps (None: all)
+SERVE_TP = dict(ranks=2, batch=4, prompt=256, steps=32,
+                depth={"qwen3-8b": None, "deepseek-moe-16b": 3})
+#: 13c, fp32 with TF32 off, each against the one-rank steps each rank runs
+#: beside: (arch, mesh (data, model), rows, prompt (0: decode from an
+#: empty cache), decode steps, cache length).  deepseek-moe-16b on (1, 2)
+#: decodes expert-parallel (32 of 64 experts a rank); on (2, 1) its 4 rows
+#: of 16 tokens fall back to one dispatch group in the prefill (64 tokens
+#: over 2 groups: 32 x 1.25 < 64 experts) and in every decode step, as
+#: the reference's do (2 steps: each gathers every fp32 weight over data
+#: through host copies); hymba-1.5b's one row splits its 24 slots over
+#: data, 12 a rank, so positions 0-11 land in rank 0's run and 12-16 in
+#: rank 1's, and both add to the softmax merge from step 13 on
+SERVE_EXACT = [("qwen3-8b", (1, 2), 4, 64, 8, 96),
+               ("deepseek-moe-16b", (1, 2), 4, 64, 8, 96),
+               ("deepseek-moe-16b", (2, 1), 4, 16, 2, 48),
+               ("hymba-1.5b", (2, 1), 1, 0, 16, 24)]
+SERVE_EXACT_DEPTH = 2
+#: 13c's bound on the last logits, fixed before the first run
+SERVE_LOGIT_ATOL = 1e-4
+
+
+def serve_tp_cfgs():
+    """(runs, exact): 13a-13b's bf16 configs and 13c's fp32 ones."""
+    from repro_torch.models import registry
+
+    runs = []
+    for arch, depth in SERVE_TP["depth"].items():
+        cfg = registry.get_config(arch)
+        runs.append(cfg if depth is None else cut_depth(cfg, depth))
+    exact = [dataclasses.replace(cut_depth(registry.get_config(e[0]),
+                                           SERVE_EXACT_DEPTH),
+                                 dtype="float32") for e in SERVE_EXACT]
+    return runs, exact
+
+
+def build_sharded(cfg, seed, dev, mesh, rank, world):
+    """``init_params`` placed on ``mesh`` by ``shard_model``, the ranks
+    taking turns (a barrier between them), so that the card never holds
+    two full copies at once."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding
+    from repro_torch.models.transformer import init_params
+
+    model = None
+    for r in range(world):
+        if r == rank:
+            model = sharding.shard_model(init_params(cfg, seed=seed,
+                                                     device=dev), mesh)
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return model
+
+
+def serve_tp_rank(rank, port, out, seed, dev_type, runs, exact,
+                  shapes) -> None:
+    """One of phase 13's two ranks (module docstring): ``runs`` served at
+    ``SERVE_TP``'s shape, ``exact`` held against the one-rank steps
+    (``shapes``: the parent's ``SERVE_TP`` and ``SERVE_EXACT``); each rank
+    writes its results to ``out`` (rank 1 beside it)."""
+    SERVE_TP.update(shapes[0])
+    SERVE_EXACT[:] = shapes[1]
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import init_params, param_count
+    from repro_torch.serve import steps
+
+    on_card = dev_type == "cuda"
+    if on_card:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:                  # a CPU rehearsal: nothing to synchronise or read
+        for f in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
+            setattr(torch.cuda, f, lambda *a, **k: None)
+        torch.cuda.max_memory_allocated = lambda *a, **k: 0
+        torch.set_num_threads(2)
+    dev = torch.device(dev_type)
+    world = SERVE_TP["ranks"]
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=world, rank=rank)
+    try:
+        res = {"runs": {}, "exact": []}
+        t_up = time.perf_counter()
+        mesh = make_mesh((1, world), ("data", "model"), dev_type)
+        B, P, n = SERVE_TP["batch"], SERVE_TP["prompt"], SERVE_TP["steps"]
+        ops.reset_launch_counts()
+        for cfg in runs:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            model = build_sharded(cfg, seed, dev, mesh, rank, world)
+            toks = tp_batch(cfg, B, P, seed, dev)["tokens"]
+            prefill = steps.make_prefill_step(cfg, P + n)
+            serve = steps.make_serve_step(cfg)
+            torch.cuda.synchronize()
+            sharding.reset_wire_counts()
+            t0 = time.perf_counter()
+            logits, cache = prefill(model, {"tokens": toks})
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            wire_prefill = sharding.wire_counts()
+            tok = torch.argmax(logits[:, -1], -1).to(torch.int32)
+            out_toks, secs = [tok.cpu().tolist()], []
+            for i in range(n):
+                sharding.reset_wire_counts()
+                t0 = time.perf_counter()
+                tok, cache = serve(model, cache, tok, P + i)
+                out_toks.append(tok.cpu().tolist())
+                secs.append(time.perf_counter() - t0)
+            res["runs"][cfg.name] = dict(
+                prefill_s=prefill_s, secs=secs, tokens=out_toks,
+                finite=bool(torch.isfinite(logits).all()),
+                logits_shape=list(logits.shape),
+                wire_prefill=wire_prefill, wire_decode=sharding.wire_counts(),
+                peak=torch.cuda.max_memory_allocated(),
+                local_params=sum(p.to_local().numel()
+                                 for p in model.parameters()),
+                params=param_count(model))
+            del model, cache, logits
+        res["launches"] = ops.launch_counts()
+        res["times"] = {"13a-13b": time.perf_counter() - t_up}
+        for cfg, (_, dims, rows, prompt, n_dec, L) in zip(exact,
+                                                          SERVE_EXACT):
+            gc.collect()
+            torch.cuda.empty_cache()
+            emesh = make_mesh(dims, ("data", "model"), dev_type)
+            sh = sharding.shard_model(init_params(cfg, seed=seed,
+                                                  device=dev), emesh)
+            one = init_params(cfg, seed=seed, device=dev)
+            prefill = steps.make_prefill_step(cfg, L)
+            serve = steps.make_serve_step(cfg)
+            r = {"logit_diff": 0.0, "equal": True}
+            tallies, t_run = [], time.perf_counter()
+            for model in (sh, one):
+                tally = {"on": True, "slots": 0, "dropped": 0}
+                with counting_drops(tally):
+                    if prompt:
+                        toks = tp_batch(cfg, rows, prompt, seed, dev)[
+                            "tokens"]
+                        logits, cache = prefill(model, {"tokens": toks})
+                        tok = torch.argmax(logits[:, -1], -1).to(
+                            torch.int32)
+                    else:
+                        cache = model.init_cache(rows, L)
+                        tok = torch.full((rows,), 1 + seed, dtype=torch.int32,
+                                         device=dev)
+                        logits = None
+                    seq = [tok.cpu().tolist()]
+                    for i in range(n_dec):
+                        tok, cache = serve(model, cache, tok, prompt + i)
+                        seq.append(tok.cpu().tolist())
+                    if logits is None:       # the next step's logits
+                        logits = model.decode_step(
+                            sharding.local_rows(tok) if model is sh
+                            else tok, cache, prompt + n_dec)[0]
+                tallies.append((tally["slots"], int(tally["dropped"]),
+                                seq, logits.float().cpu()))
+            (s0, d0, q0, l0), (s1, d1, q1, l1) = tallies
+            r.update(slots=[s0, s1], dropped=[d0, d1], tokens=q0,
+                     equal=q0 == q1 and (s0, d0) == (s1, d1),
+                     logit_diff=float((l0 - l1).abs().max()),
+                     secs=time.perf_counter() - t_run)
+            res["exact"].append(r)
+            del sh, one, cache
+        res["times"]["13c"] = time.perf_counter() - t_up - res["times"][
+            "13a-13b"]
+        path = Path(out) if rank == 0 else Path(out).with_suffix(".rank1")
+        path.write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_serve_tp(dev, args, cfgs=None) -> None:
+    """Phase 13 (see the module docstring).  ``cfgs`` = (runs, exact)
+    replaces the configs only to rehearse the phase on the CPU."""
+    from repro_torch.distributed.sharding import rows_per_rank
+    from repro_torch.roofline import analysis
+
+    t0 = time.perf_counter()
+    runs, exact = cfgs if cfgs is not None else serve_tp_cfgs()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip() \
+        if dev.type == "cuda" else "no card (CPU rehearsal)"
+    world = SERVE_TP["ranks"]
+    log(f"  13: {world} ranks on one {dev.type} device over a gloo group "
+        f"(tcp://127.0.0.1), collectives of CUDA tensors through host "
+        f"copies, compute on the device; card: {smi}")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "serve.json"
+        spawn_ranks("phase 13", serve_tp_rank, world,
+                    (free_port(), str(out), args.seed, dev.type, runs, exact,
+                     (SERVE_TP, SERVE_EXACT)), timeout=600)
+        res = json.loads(out.read_text())
+        res1 = json.loads(out.with_suffix(".rank1").read_text())
+    B, P, n = SERVE_TP["batch"], SERVE_TP["prompt"], SERVE_TP["steps"]
+    sizes = {"data": 1, "model": world}
+    for cfg in runs:
+        r, r1 = res["runs"][cfg.name], res1["runs"][cfg.name]
+        tag = f"13{'ab'[runs.index(cfg)]}"
+        p50 = [pct(x["secs"], 50) * 1e3 for x in (r, r1)]
+        p99 = [pct(x["secs"], 99) * 1e3 for x in (r, r1)]
+        plans = {k: {a: v for a, v in analysis.plan_collective_bytes(
+            cfg, sizes, k, tokens=rows_per_rank(B, sizes) * (
+                1 if k == "decode" else P), batch=B,
+            cache_len=P + n)["by_axis"].items()}
+            for k in ("prefill", "decode")}
+        log(f"  {tag}: {cfg.name} at full width, {cfg.n_layers} layers "
+            f"({cfg.dtype}), mesh (data, model) = (1, {world}), "
+            f"{r['params']} parameters, {r['local_params']} and "
+            f"{r1['local_params']} held by ranks 0 and 1; prefill of {B} x "
+            f"{P} tokens {r['prefill_s'] * 1e3:.3f} / "
+            f"{r1['prefill_s'] * 1e3:.3f} ms (ranks 0 / 1), last logits "
+            f"{r['logits_shape']} whole on each rank; {n} greedy steps: "
+            f"p50 {p50[0]:.3f} / {p50[1]:.3f} ms, p99 {p99[0]:.3f} / "
+            f"{p99[1]:.3f} ms (two ranks share the card's SMs: recorded, "
+            f"not a speed); peak device memory {r['peak']} / {r1['peak']} "
+            f"B; bytes moved by rank 0, prefill {r['wire_prefill']}, a "
+            f"decode step {r['wire_decode']}; the plan's count "
+            f"(analysis.plan_collective_bytes): prefill {plans['prefill']}, "
+            f"decode {plans['decode']}; first tokens {r['tokens'][1]}; "
+            f"[{smi}]")
+        if not r["finite"] or r["tokens"] != r1["tokens"]:
+            raise AssertionError(f"{tag} {cfg.name}: tokens differ between "
+                                 "the ranks or the logits are not finite")
+        if r["logits_shape"] != [B, 1, cfg.vocab]:
+            raise AssertionError(f"{tag}: logits {r['logits_shape']}")
+        for k in ("prefill", "decode"):
+            for x in (r, r1):
+                got = {a: v for a, v in x[f"wire_{k}"].items()
+                       if a != "model_gathered"}
+                if got != plans[k] or x[f"wire_{k}"]["model_gathered"]:
+                    raise AssertionError(
+                        f"{tag} {cfg.name} {k}: moved {x[f'wire_{k}']}, "
+                        f"the plan counts {plans[k]}")
+    for launches in (res["launches"], res1["launches"]):
+        if any(launches.values()):
+            raise AssertionError(f"13 launched a kernel: {launches}")
+    log("  13a-13b launched none of the six kernels: "
+        + json.dumps(res["launches"]))
+    for i, (cfg, (_, dims, rows, prompt, n_dec, L)) in enumerate(
+            zip(exact, SERVE_EXACT)):
+        e, e1 = res["exact"][i], res1["exact"][i]
+        diff = max(e["logit_diff"], e1["logit_diff"])
+        log(f"  13c: {cfg.name} at full width, {cfg.n_layers} layers, "
+            f"fp32, TF32 off, mesh (data, model) = {tuple(dims)}, {rows} "
+            f"rows, " + (f"a prefill of {prompt} tokens" if prompt
+                         else "from an empty cache") + f", {n_dec} greedy "
+            f"steps, cache {L}: vs the one-rank steps each rank runs "
+            f"beside, tokens equal {e['equal'] and e1['equal']}, last "
+            f"logits max abs diff {diff:.3e} (bound "
+            f"{SERVE_LOGIT_ATOL:.0e}); MoE slots routed / dropped, sharded "
+            f"vs one rank: {e['slots']} / {e['dropped']}; tokens "
+            f"{e['tokens'][-1]}; both paths {e['secs']:.1f} s (every "
+            "weight's data gathers through host copies)")
+        if not (e["equal"] and e1["equal"]) or diff > SERVE_LOGIT_ATOL \
+                or e["tokens"] != e1["tokens"]:
+            raise AssertionError(f"13c {cfg.name}: the sharded steps differ "
+                                 "from the one-rank steps")
+    log(f"  phase 13 took {time.perf_counter() - t0:.1f} s (rank 0 from its "
         "process group up: " + ", ".join(f"{k} {v:.1f} s" for k, v in
                                           res["times"].items()) + ")")
 
@@ -3838,6 +4134,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     phase_tp(dev, args)
+    log("phase 13: sharded serving, two ranks on the card: qwen3-8b at "
+        "full width and depth and deepseek-moe-16b at 3 layers through "
+        "the prefill and greedy steps of serve/steps.py over (data, model) "
+        "= (1, 2); fp32 vs the one-rank steps")
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_serve_tp(dev, args)
     log("phase 6: durable open-loop ingest over torch-nbtree, crash and "
         "restart")
     t6 = time.perf_counter()

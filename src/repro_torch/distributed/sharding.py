@@ -401,20 +401,20 @@ def _reduce_scatter(t, dim: int, group, axis: str):
     return out.movedim(0, dim)
 
 
-def _model_group():
-    """(group, rank, size) of the current mesh's ``"model"`` axis, or None
+def _axis_group(axis: str):
+    """(group, rank, size, axis) of the current mesh's ``axis``, or None
     where it has one rank or there is no mesh."""
     mesh = current_mesh()
-    if mesh_sizes(mesh).get("model", 1) <= 1:
+    if mesh_sizes(mesh).get(axis, 1) <= 1:
         return None
-    return (mesh.get_group("model"), mesh.get_local_rank("model"),
-            mesh_sizes(mesh)["model"])
+    return (mesh.get_group(axis), mesh.get_local_rank(axis),
+            mesh_sizes(mesh)[axis], axis)
 
 
 def model_rank() -> int:
     """This rank's index along ``"model"`` of the current mesh (0 without
     one)."""
-    g = _model_group()
+    g = _axis_group("model")
     return 0 if g is None else g[1]
 
 
@@ -448,7 +448,7 @@ def copy_to_model(x):
     """``x`` entering a split region: the identity, whose gradient (each
     rank's share) is summed over ``"model"``; ``x`` itself without a
     ``"model"`` axis."""
-    g = _model_group()
+    g = _axis_group("model")
     return x if g is None else _CopyToModel.apply(x, g[0])
 
 
@@ -456,17 +456,17 @@ def reduce_from_model(x):
     """A split region's partial result summed over ``"model"`` (identity
     backward: every rank's copy of the sum carries the same gradient);
     ``x`` itself without a ``"model"`` axis."""
-    g = _model_group()
+    g = _axis_group("model")
     return x if g is None else _ReduceFromModel.apply(x, g[0])
 
 
-def all_reduce_max(x):
-    """The elementwise max of ``x`` over ``"model"``, detached (the loss's
-    shift, which carries no gradient)."""
-    g = _model_group()
+def all_reduce_max(x, axis: str = "model"):
+    """The elementwise max of ``x`` over ``axis``, detached (the loss's
+    shift, a split softmax's: they carry no gradient)."""
+    g = _axis_group(axis)
     x = x.detach()
     return x if g is None else all_reduce(x.contiguous().clone(), g[0],
-                                          "model", op="max")
+                                          axis, op="max")
 
 
 # ------------------------------------------------------ fetching the weights
@@ -580,6 +580,185 @@ def global_norm(local: dict, params: dict) -> torch.Tensor:
     for i, name in enumerate(mesh.mesh_dim_names):
         all_reduce(sq, mesh.get_group(i), name)
     return torch.sqrt(sq[0])
+
+
+# ---------------------------------------------------- the rows of a batch
+def row_axes(B: int, sizes: dict) -> tuple:
+    """The mesh axes (of more than one rank) that split the rows of a
+    ``B``-row batch, the reference's ``batch_specs``: pod x data where
+    that divides ``B``, else data where it does, else none (every rank
+    serves every row)."""
+    pod, data = sizes.get("pod", 1), sizes.get("data", 1)
+    axes = (("pod", "data") if B % (pod * data) == 0
+            else ("data",) if B % data == 0 else ())
+    return tuple(a for a in axes if sizes.get(a, 1) > 1)
+
+
+def rows_per_rank(B: int, sizes: dict) -> int:
+    """The rows of a ``B``-row batch that one rank serves
+    (:func:`row_axes`)."""
+    return B // math.prod(sizes[a] for a in row_axes(B, sizes))
+
+
+def _row_groups() -> list:
+    """:func:`_axis_group` of each current data-parallel axis (the axes
+    the rows are split over) of more than one rank, outermost first."""
+    return [g for g in map(_axis_group, current_dp_axes()) if g is not None]
+
+
+def local_rows(t):
+    """This rank's rows (dim 0) of ``t``, which holds every rank's: slice
+    ``r`` of the current data-parallel axes' ranks, ``r`` row-major over
+    them (the train step's and the reference's layout)."""
+    r, n = 0, 1
+    for _, rank, size, _ in _row_groups():
+        r, n = r * size + rank, n * size
+    k = t.shape[0] // n
+    return t[r * k:(r + 1) * k]
+
+
+def global_rows(B: int) -> int:
+    """The rows of the whole batch of which this rank holds ``B`` (split
+    over the current data-parallel axes): what the reference's GSPMD step
+    sees, and so what its shape-dependent choices read."""
+    return B * math.prod(g[2] for g in _row_groups())
+
+
+def _gather_rows(t, groups):
+    for group, _, _, axis in reversed(groups):   # the innermost axis first
+        t = _all_gather(t, 0, group, axis)
+    return t
+
+
+class _GatherRows(torch.autograd.Function):
+    """Every rank's rows, in the order of :func:`local_rows`; the gradient
+    summed back to each rank's own (reduce-scatters, outermost axis
+    first)."""
+
+    @staticmethod
+    def forward(ctx, t, groups):
+        ctx.groups = groups
+        return _gather_rows(t, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        for group, _, _, axis in ctx.groups:
+            g = _reduce_scatter(g, 0, group, axis)
+        return g.contiguous(), None
+
+
+def gather_rows(t):
+    """``t`` (this rank's rows, dim 0) gathered over the current
+    data-parallel axes into every rank's rows (:func:`local_rows`'s
+    order), differentiable; ``t`` itself where the rows are not split."""
+    groups = _row_groups()
+    return _GatherRows.apply(t, groups) if groups else t
+
+
+# -------------------------------------------------------- serving's layout
+def slots_split(B: int, T: int, sizes: dict) -> bool:
+    """Whether the ``T`` KV slots of a ``B``-row decode cache go over
+    ``"data"`` (the reference's ``cache_specs``): for ``B == 1`` (one
+    long context, whose row no axis can split), where ``T`` divides."""
+    data = sizes.get("data", 1)
+    return B == 1 and data > 1 and T % data == 0
+
+
+def slot_range(T_local: int):
+    """(first slot, global slot count) of this rank's ``T_local`` slots of
+    a cache whose slots are split over ``"data"``."""
+    g = _axis_group("data")
+    return g[1] * T_local, T_local * g[2]
+
+
+def data_sum(*ts) -> list:
+    """Each of ``ts`` summed over ``"data"``, in one all-reduce of their
+    concatenation."""
+    g = _axis_group("data")
+    if g is None:
+        return list(ts)
+    flat = all_reduce(torch.cat([t.reshape(-1) for t in ts]), g[0], "data")
+    out, at = [], 0
+    for t in ts:
+        out.append(flat[at:at + t.numel()].view_as(t))
+        at += t.numel()
+    return out
+
+
+#: a KV dict's tensors that hold KV heads (dim 2)
+KV_HEAD_KEYS = ("k", "v", "k_scale", "v_scale")
+
+
+class RankCache(list):
+    """A sharded model's decode cache on one rank: the unsharded cache's
+    list (one entry a layer), each tensor this rank's piece, and the
+    layout it was cut by: ``rows``, the mesh axes its rows are split over
+    (:func:`row_axes`); ``kv_split``, the layers whose KV heads are split
+    over ``"model"`` (the others hold every KV head on every rank of the
+    axis); ``slots``, the layers whose slots are split over ``"data"``
+    (:func:`slots_split`)."""
+
+    def __init__(self, entries, rows=(), kv_split=frozenset(),
+                 slots=frozenset()):
+        super().__init__(entries)
+        self.rows = tuple(rows)
+        self.kv_split = frozenset(kv_split)
+        self.slots = frozenset(slots)
+
+
+def _gather_entry(e, heads: bool, slots: bool, rows: list):
+    if isinstance(e, tuple):
+        return tuple(_gather_entry(t, heads, slots, rows) for t in e)
+    if isinstance(e, dict) and "kv" in e:              # a hybrid layer
+        return {"kv": _gather_entry(e["kv"], heads, slots, rows),
+                "ssm": _gather_entry(e["ssm"], False, False, rows)}
+    if isinstance(e, dict):
+        out = {}
+        for k, t in e.items():
+            t = _gather_rows(t, rows)
+            if slots:
+                g = _axis_group("data")
+                t = _all_gather(t, 1, g[0], "data")
+            if heads and k in KV_HEAD_KEYS:
+                g = _axis_group("model")
+                t = _all_gather(t, 2, g[0], "model")
+            out[k] = t
+        return out
+    return _gather_rows(e, rows)
+
+
+def gather_cache(cache: RankCache) -> list:
+    """The global decode cache (a plain list, the unsharded model's
+    layout) from every rank's :class:`RankCache`: rows, KV heads and slots
+    gathered where the layout split them; every rank of the mesh must
+    call it, inside the model's ``mesh_scope``."""
+    rows = [g for g in map(_axis_group, cache.rows) if g is not None]
+    return [_gather_entry(e, i in cache.kv_split, i in cache.slots, rows)
+            for i, e in enumerate(cache)]
+
+
+def gather_model(t, dim: int = -1):
+    """``t``'s pieces along ``"model"`` (dim ``dim``) gathered in rank
+    order: a split vocab's columns."""
+    g = _axis_group("model")
+    return t if g is None else _all_gather(t, dim, g[0], "model")
+
+
+def vocab_argmax(logits, split: bool):
+    """Greedy ids (...,) of ``logits`` (..., V'), whose columns are this
+    rank's ``V / m`` of a vocab split over ``"model"`` (rank r's from ``r
+    * V / m``) where ``split``: the global argmax, ties to the lowest
+    global id as ``torch.argmax``; the local argmax otherwise."""
+    ids = torch.argmax(logits, dim=-1)
+    g = _axis_group("model") if split else None
+    if g is None:
+        return ids
+    best = torch.gather(logits, -1, ids[..., None])[..., 0].float()
+    top = all_reduce(best.contiguous().clone(), g[0], "model", op="max")
+    ids = ids + g[1] * logits.shape[-1]
+    # the lowest id among the ranks holding the max: max of its negation
+    cand = torch.where(best == top, -ids, -torch.iinfo(torch.int64).max)
+    return -all_reduce(cand.contiguous(), g[0], "model", op="max")
 
 
 def full_state(tree, keep: bool = True):

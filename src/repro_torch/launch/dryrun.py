@@ -4,11 +4,10 @@
 The port of ``repro/launch/dryrun.py``.  The reference lowers and
 compiles each cell's step over 512 XLA placeholder devices and reads
 XLA's memory and cost analyses.  PyTorch has no such artifact, so this
-dry-run counts the port's plan instead (``PLAN``), and every record says
-so under ``"plan"``; it claims no HLO number.  Only the train cells
-count a plan the port runs: the port has no sharded serving path, so
-the prefill and decode records count a hypothetical layout
-(``SERVE_PLAN``) and say so.  For each cell whose
+dry-run counts the plans the port runs instead, and every record says
+so under ``"plan"`` (``PLAN`` for the train cells, ``SERVING_PLAN`` for
+the prefill, decode and long-context ones); it claims no HLO number.
+For each cell whose
 ``configs/shapes.py::cell_status`` is ``run``, on the production mesh
 sizes (16 x 16 and 2 x 16 x 16; ``launch/mesh.py::production_shape``):
 
@@ -17,23 +16,26 @@ sizes (16 x 16 and 2 x 16 x 16; ``launch/mesh.py::production_shape``):
 * their per-rank bytes follow the placements of
   ``distributed/sharding.py::param_specs`` (parameters, AdamW ``m`` and
   ``v``, gradients) and the plan's rows (the batch's rows over pod x
-  data where they divide, as the reference's ``batch_specs``; a
-  serving cache follows its rows and is not split over ``"model"``);
+  data where they divide, else over data, else every row, as the
+  reference's ``batch_specs``: ``sharding.row_axes``); a serving cache is
+  the rank's piece that ``Transformer.rank_cache`` lays out (its rows,
+  its KV heads where the plan splits them over ``"model"``, for one row
+  its slots over ``"data"``);
 * ``activation_estimate`` adds what one step keeps live besides: under
   ``remat == "layer"`` each layer's input, one layer's working set (its
   attention scores, projections and MLP hidden, the recurrences' per-step
-  states that autograd keeps; in a train cell the split parts 1/m of
-  it), the logits with their fp32 copy and gradient (1/m where the vocab
-  is split), and the fetched weights of one layer and of the embeddings
-  (a split weight's 1/m).  It is an estimate, labelled so;
+  states that autograd keeps; the split parts 1/m of it), the logits
+  with their fp32 copy and gradient (1/m where the vocab is split), and
+  the fetched weights of one layer and of the embeddings (a split
+  weight's 1/m).  It is an estimate, labelled so;
 * the total is held against the planned card's device memory
   (``hardware.H100[hardware.PLANNED]["hbm_bytes"]``, ``fits``);
 * FLOPs are the plan's per rank: ``model_flops`` per token over this
-  rank's rows, the weights the train plan splits over ``"model"``
-  counted 1/m (``analysis.active_params_per_rank``; the serving layout
-  repeats every product on each rank of the axis), times the step's
-  passes (forward, backward, the recompute), plus attention's score and
-  value products (1/m where the heads are split); HBM bytes the plan's
+  rank's rows, the weights the plan splits over ``"model"`` counted 1/m
+  (``analysis.active_params_per_rank``; the train and serving steps
+  split alike), times the step's passes (forward, backward, the
+  recompute), plus attention's score and value products (1/m where the
+  heads are split, 1/data where one row's slots are); HBM bytes the plan's
   reads of the fetched weights, the optimizer's pass over its shards,
   the activations and the cache; collective bytes
   ``roofline/analysis.py::plan_collective_bytes``.
@@ -59,10 +61,11 @@ import traceback
 import torch
 
 from ..configs.shapes import SHAPES, cell_status
+from ..distributed import sharding
 from ..distributed.sharding import mesh_sizes, param_specs, shard_factor
 from ..models import registry
 from ..models.blockwise_attn import should_use_blockwise
-from ..models.transformer import Transformer
+from ..models.transformer import Transformer, kv_len
 from ..roofline import analysis
 from ..roofline import hardware as hw
 from .mesh import production_shape
@@ -75,19 +78,22 @@ PLAN = ("port: parameters, AdamW m and v and gradients placed by "
         "MoE experts (or their hidden units) and the vocab split over "
         "model, with activation all-reduces there; bytes and FLOPs counted "
         "from this plan, not from HLO")
-#: the prefill and decode cells' plan: the port has no sharded serving
-#: path (``serve/`` takes no mesh), so these records count a layout that
-#: no code of the port runs
-SERVE_PLAN = ("hypothetical, not implemented: the port serves on one rank "
-              "with full weights (serve/ takes no mesh); counted as if the "
-              "weights were placed by distributed/sharding.py::param_specs "
-              "and gathered to full a layer at a time, with cache rows over "
-              "pod x data; bytes and FLOPs counted from this layout, not "
-              "from HLO nor from a run")
+#: the prefill, decode and long-context cells' plan: ``serve/steps.py`` on
+#: a sharded model (``analysis.step_plan``)
+SERVING_PLAN = (
+    "port: serve/steps.py on a model placed by distributed/sharding.py::"
+    "param_specs; rows over pod x data where they divide, else data, else "
+    "every row; each layer's weights gathered over data, and over model "
+    "only the plan's exceptions (off-boundary KV heads, MLA's wq_down, the "
+    "recurrent cells); attention heads, MLP hidden units, MoE experts (or "
+    "their hidden units) and the vocab split over model as in training, "
+    "with activation all-reduces there; the cache's KV heads split over "
+    "model where the plan splits them, one row's slots over data with a "
+    "log-sum-exp merge; the logits' vocab and rows gathered at the end; "
+    "bytes and FLOPs counted from this plan, not from HLO")
 
 ATTN_KINDS = ("dense", "swa", "moe", "moe_swa", "mla", "encoder", "hybrid",
               "hybrid_global")
-WINDOWED = ("swa", "moe_swa", "hybrid")
 HBM_BYTES = hw.H100[hw.PLANNED]["hbm_bytes"]
 
 
@@ -101,18 +107,6 @@ def _tree_bytes(tree) -> int:
     if isinstance(tree, (list, tuple)):
         return sum(_tree_bytes(v) for v in tree)
     return _nbytes(tree)
-
-
-def rows_per_rank(B: int, sizes: dict) -> int:
-    """Rows of a B-row batch on one rank: B over pod x data where that
-    divides it, else over data, else every row (the reference's
-    ``batch_specs``)."""
-    pod, data = sizes.get("pod", 1), sizes.get("data", 1)
-    if B % (pod * data) == 0:
-        return B // (pod * data)
-    if B % data == 0:
-        return B // data
-    return B
 
 
 def input_bytes(cfg, shape) -> int:
@@ -141,21 +135,30 @@ def _attn_dims(cfg, kind):
 def _kv_len(cfg, kind, shape) -> int:
     if shape.kind != "decode":
         return shape.seq_len
-    if kind in WINDOWED:
-        return min(shape.seq_len, max(cfg.swa_window + 128, 256))
-    return shape.seq_len
+    return kv_len(kind, cfg, shape.seq_len)
 
 
-def attention_flops(cfg, shape, rows: int) -> float:
+def _slots(cfg, kind, shape, sizes) -> int:
+    """Into how many runs a decode cell's ``kind`` layer splits its slots
+    (``sharding.slots_split``: one row's, over ``"data"``)."""
+    if shape.kind != "decode" or not sizes or not sharding.slots_split(
+            shape.global_batch, _kv_len(cfg, kind, shape), sizes):
+        return 1
+    return sizes["data"]
+
+
+def attention_flops(cfg, shape, rows: int, sizes=None) -> float:
     """Forward score and value products of every attention layer over
-    ``rows`` rows: 4 * rows * S * T * H * D a layer."""
+    ``rows`` rows: 4 * rows * S * T * H * D a layer (T over this rank's
+    slots on a mesh of ``sizes``)."""
     S = 1 if shape.kind == "decode" else shape.seq_len
     total = 0.0
     for kind, count in cfg.segments:
         if kind not in ATTN_KINDS:
             continue
         H, D = _attn_dims(cfg, kind)
-        total += count * 4.0 * rows * S * _kv_len(cfg, kind, shape) * H * D
+        total += (count * 4.0 * rows * S * _kv_len(cfg, kind, shape) * H * D
+                  / _slots(cfg, kind, shape, sizes))
     return total
 
 
@@ -201,8 +204,8 @@ def _layer_working_bytes(cfg, kind, shape, rows: int, item: int,
 def activation_estimate(cfg, shape, rows: int, microbatches: int,
                         shapes: dict, plan=None, m: int = 1) -> dict:
     """Live bytes besides the state (module docstring), by part; ``plan``
-    (``analysis.train_plan``) splits a train cell's parts over
-    ``"model"`` of ``m`` ranks."""
+    (``analysis.step_plan``) splits a cell's parts over ``"model"`` of
+    ``m`` ranks."""
     item = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
     train = shape.kind == "train"
     modes = plan.modes if plan else {}
@@ -254,7 +257,7 @@ def lower_cell(arch: str, shape_name: str, mesh, *, microbatches: int = 1,
     sizes = mesh_sizes(mesh)
     n_dev = math.prod(sizes.values())
     train = shape.kind == "train"
-    rows = rows_per_rank(shape.global_batch, sizes)
+    rows = sharding.rows_per_rank(shape.global_batch, sizes)
     if train and rows % microbatches:
         raise ValueError(f"{rows} rows a rank do not split into "
                          f"{microbatches} microbatches")
@@ -275,13 +278,15 @@ def lower_cell(arch: str, shape_name: str, mesh, *, microbatches: int = 1,
             elems[n] * (4 if microbatches > 1 else shapes[n][1])
             for n in shapes)
     per_rank["batch"] = float(input_bytes(cfg, shape))
+    plan = analysis.step_plan(cfg, sizes)
+    modes = plan.modes
     cache = 0.0
     if not train and not cfg.encoder_only:
-        # the rows' cache (the prefill builds the one decode reads)
-        cache = float(_tree_bytes(model.init_cache(rows, shape.seq_len)))
+        # the rank's piece of the cache (the prefill builds the one decode
+        # reads)
+        cache = float(_tree_bytes(model.rank_cache(
+            shape.global_batch, shape.seq_len, sizes, plan.layers)))
         per_rank["cache"] = cache
-    plan = analysis.train_plan(cfg, sizes) if train else None
-    modes = plan.modes if train else {}
     m = sizes.get("model", 1)
     est = activation_estimate(cfg, shape, rows, microbatches, shapes,
                               plan, m)
@@ -290,11 +295,11 @@ def lower_cell(arch: str, shape_name: str, mesh, *, microbatches: int = 1,
 
     # FLOPs and HBM bytes of the plan, per rank
     passes = (4 if cfg.remat == "layer" else 3) if train else 1
-    attn_split = m if plan and any("attn" in s for s in plan.layers) else 1
-    active = (analysis.active_params_per_rank(cfg, sizes) if train
-              else analysis.active_params(cfg))
+    attn_split = m if any("attn" in s for s in plan.layers) else 1
+    active = analysis.active_params_per_rank(cfg, sizes)
     flops = (passes * 2.0 * active * tokens_rank
-             + passes * attention_flops(cfg, shape, rows) / attn_split)
+             + passes * attention_flops(cfg, shape, rows, sizes)
+             / attn_split)
     fetched = sum(math.prod(s) * it / (m if modes.get(n) == "local" else 1)
                   for n, (s, it) in shapes.items())
     weight_reads = (3 if cfg.remat == "layer" else 2) if train else 1
@@ -306,7 +311,8 @@ def lower_cell(arch: str, shape_name: str, mesh, *, microbatches: int = 1,
         hbm += cache + est["logits"]
     wires = analysis.plan_collective_bytes(
         cfg, sizes, shape.kind, microbatches=microbatches,
-        tokens=tokens_rank if train else 0)
+        tokens=tokens_rank, batch=shape.global_batch,
+        cache_len=shape.seq_len)
     mf = analysis.model_flops(cfg, tokens, "train" if train else "serve")
     roof = analysis.analyze_from(
         flops=flops, hbm_bytes=hbm, nvlink_bytes=wires["nvlink"],
@@ -314,7 +320,7 @@ def lower_cell(arch: str, shape_name: str, mesh, *, microbatches: int = 1,
         model_flops_total=mf, by_kind=wires["by_kind"])
     return {
         "arch": arch, "shape": shape_name, "status": "ok",
-        "plan": PLAN if train else SERVE_PLAN,
+        "plan": PLAN if train else SERVING_PLAN,
         "mesh": "x".join(str(v) for v in sizes.values()),
         "n_devices": n_dev, "rows_per_rank": rows,
         "microbatches": microbatches if train else 1,

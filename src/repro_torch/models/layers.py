@@ -22,8 +22,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..distributed.sharding import (copy_to_model, model_rank,
-                                    reduce_from_model)
+from ..distributed.sharding import (all_reduce_max, copy_to_model,
+                                    data_sum, global_rows, model_rank,
+                                    reduce_from_model, slot_range)
 from .blockwise_attn import blockwise_sdpa, should_use_blockwise
 
 
@@ -158,6 +159,22 @@ def _sdpa(q, k, v, mask):
     return out.reshape(B, S, H, D).to(v.dtype)
 
 
+def _sdpa_slots(q, k, v, mask):
+    """:func:`_sdpa` of one decode step over slots split across
+    ``"data"`` (this rank's ``k``/``v`` (B, T', KVH, D), ``mask`` (B, 1,
+    T')): the same grouping, merged by :func:`split_softmax`."""
+    B, S, H, D = q.shape
+    KVH = k.shape[2]
+    q = q.reshape(B, S, KVH, H // KVH, D)
+    scores = torch.einsum("bskgd,btkd->bkgst", q.float(),
+                          k.float()) / math.sqrt(D)
+    num, den = split_softmax(
+        scores, mask[:, None, None, :, :],
+        lambda w: torch.einsum("bkgst,btkd->bkgsd", w, v.float()))
+    out = (num / den).permute(0, 3, 1, 2, 4)          # (B, S, KVH, G, D)
+    return out.reshape(B, S, H, D).to(v.dtype)
+
+
 def causal_mask(S, T=None, window=None, offset=0, device=None):
     """(S, T) bool; True = attend.  offset = query-position of row 0."""
     T = T or S
@@ -201,9 +218,25 @@ def _own_kv_heads(t, H_local: int, cfg):
     return t.index_select(2, idx)
 
 
+def split_softmax(sc, mask, values):
+    """Softmax attention over slots split across ``"data"``: ``sc`` the
+    fp32 scores (..., T') over this rank's slots, ``mask`` where they
+    attend, ``values(w)`` the product of weights (..., T') with this
+    rank's values.  A log-sum-exp merge: the max over every rank's slots
+    (all-reduced), then this rank's sum of exps and weighted values,
+    summed over the axis in one all-reduce; a rank whose slots are all
+    masked adds nothing.  Returns (the weighted values, the sum of exps),
+    each summed over the axis, fp32: their quotient is the output."""
+    sc = torch.where(mask, sc, -1e30)
+    top = all_reduce_max(sc.amax(dim=-1, keepdim=True), "data")
+    w = torch.exp(sc - top)
+    num, den = data_sum(values(w), w.sum(dim=-1, keepdim=True))
+    return num, den
+
+
 def attention(x, p, cfg, *, positions, kind="causal", window=None,
               cache=None, cache_index=None, true_index=None,
-              mrope_positions=None, split=frozenset()):
+              mrope_positions=None, split=frozenset(), slots=False):
     """Full-sequence or single-step (cache) attention.
 
     ``kind`` is ``"causal"`` or ``"bidir"``; ``window`` enables SWA (a key
@@ -227,6 +260,16 @@ def attention(x, p, cfg, *, positions, kind="causal", window=None,
     with ``"kv"``, its KV heads, else every KV head
     (:func:`_own_kv_heads` picks those its queries read): x enters
     through ``copy_to_model`` and the output is summed over the axis.
+    The KV a prefill returns, and a cache, hold this rank's KV heads
+    with ``"kv"``, else every KV head.
+
+    ``slots`` (a decode step of one row whose cache's slots are split
+    over ``"data"``, ``sharding.slots_split``): the cache holds this
+    rank's run of slots, ``cache_index`` is the global slot, written by
+    the rank that holds it, and the ranks merge their partial softmaxes
+    (:func:`split_softmax`).  Whether to attend blockwise is decided on
+    the global rows (``sharding.global_rows``), as the reference's GSPMD
+    step decides on the global batch.
     """
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
@@ -242,11 +285,14 @@ def attention(x, p, cfg, *, positions, kind="causal", window=None,
     else:
         cos, sin = rope_angles(positions, hd, cfg.rope_base)
     q, k, v = project_qkv(x, p, cfg, cos, sin)
-    if heads and "kv" not in split:
+    new_cache = {"k": k, "v": v}
+    own = heads and "kv" not in split         # the cache holds every head
+    if own:
         k, v = _own_kv_heads(k, H, cfg), _own_kv_heads(v, H, cfg)
+    rows = global_rows(B)
 
     if cache is None:
-        if should_use_blockwise(B, S, S, cfg.n_heads):
+        if should_use_blockwise(rows, S, S, cfg.n_heads):
             out = blockwise_sdpa(q, k, v, qpos=positions, kpos=positions,
                                  kind=kind, window=window)
         else:
@@ -255,36 +301,46 @@ def attention(x, p, cfg, *, positions, kind="causal", window=None,
             else:
                 mask = torch.ones((S, S), dtype=torch.bool, device=x.device)
             out = _sdpa(q, k, v, mask.expand(B, S, S))
-        new_cache = {"k": k, "v": v}
     else:
+        k, v = new_cache["k"], new_cache["v"]
         tidx = true_index if true_index is not None else cache_index
         ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
         quant = ck.dtype == torch.int8
-        at = slice(cache_index, cache_index + S)
-        if quant:
-            ck[:, at], cache["k_scale"][:, at] = _quantize_kv(k)
-            cv[:, at], cache["v_scale"][:, at] = _quantize_kv(v)
-        else:
-            ck[:, at] = k
-            cv[:, at] = v
-        cpos[:, cache_index:cache_index + 1] = tidx
         T = ck.shape[1]
-        if should_use_blockwise(B, 1, T, cfg.n_heads):
+        lo = slot_range(T)[0] if slots else 0
+        if lo <= cache_index < lo + T:        # this rank holds the slot
+            at = slice(cache_index - lo, cache_index - lo + S)
+            if quant:
+                ck[:, at], cache["k_scale"][:, at] = _quantize_kv(k)
+                cv[:, at], cache["v_scale"][:, at] = _quantize_kv(v)
+            else:
+                ck[:, at] = k
+                cv[:, at] = v
+            cpos[:, at] = tidx
+        ks = (cache["k_scale"], cache["v_scale"]) if quant else None
+        if own:
+            ck, cv = _own_kv_heads(ck, H, cfg), _own_kv_heads(cv, H, cfg)
+            if quant:
+                ks = tuple(_own_kv_heads(t[..., None], H, cfg)[..., 0]
+                           for t in ks)
+        if not slots and should_use_blockwise(rows, 1, T, cfg.n_heads):
             # decode masking == causal against the stored positions
             qpos = torch.full((B, 1), tidx, dtype=torch.int32,
                               device=x.device)
-            scales = (cache["k_scale"], cache["v_scale"]) if quant else None
             out = blockwise_sdpa(q, ck, cv, qpos=qpos, kpos=cpos,
                                  kind="causal", window=window,
-                                 kv_scales=scales)
+                                 kv_scales=ks)
         else:
             m = (cpos <= tidx) & (cpos >= 0)
             if window is not None:
                 m = m & (cpos > tidx - window)
             if quant:
-                ck = ck.float() * cache["k_scale"][..., None]
-                cv = cv.float() * cache["v_scale"][..., None]
-            out = _sdpa(q, ck, cv, m[:, None, :]).to(x.dtype)
+                ck = ck.float() * ks[0][..., None]
+                cv = cv.float() * ks[1][..., None]
+            if slots:
+                out = _sdpa_slots(q, ck, cv, m[:, None, :]).to(x.dtype)
+            else:
+                out = _sdpa(q, ck, cv, m[:, None, :]).to(x.dtype)
         new_cache = cache
     out = out.reshape(B, S, H * hd) @ p.wo
     if heads:

@@ -13,9 +13,11 @@ import math
 import torch
 from torch import nn
 
-from ..distributed.sharding import copy_to_model, reduce_from_model
+from ..distributed.sharding import (copy_to_model, global_rows,
+                                    reduce_from_model, slot_range)
 from .blockwise_attn import blockwise_sdpa, should_use_blockwise
-from .layers import _weight, apply_rope, rms_norm, rope_angles
+from .layers import (_weight, apply_rope, rms_norm, rope_angles,
+                     split_softmax)
 
 
 class MLA(nn.Module):
@@ -45,7 +47,7 @@ class MLA(nn.Module):
 
 
 def mla_attention(x, p, cfg, *, positions, cache=None, cache_index=None,
-                  split=frozenset()):
+                  split=frozenset(), slots=False):
     """Returns (out, cache).
 
     Without ``cache``: x (B, S, d), causal attention over K/V built from
@@ -63,7 +65,13 @@ def mla_attention(x, p, cfg, *, positions, cache=None, cache_index=None,
     heads, and the down projections and their norms every rank's
     (``wq_down``, whose cut would split the latent its norm spans,
     gathered): x enters through ``copy_to_model`` and the output is
-    summed over the axis.
+    summed over the axis, in the prefill and in the absorbed decode alike;
+    the latent cache is every rank's.  ``slots`` (one row whose latent
+    slots are split over ``"data"``): the cache holds this rank's run of
+    slots, the one at ``cache_index`` is written by the rank that holds
+    it, and the ranks merge their partial softmaxes
+    (``layers.split_softmax``).  The blockwise switch reads the global
+    rows (``sharding.global_rows``).
     """
     m = cfg.mla
     B, S, _ = x.shape
@@ -93,7 +101,7 @@ def mla_attention(x, p, cfg, *, positions, cache=None, cache_index=None,
         k_cat = torch.cat([k_nope, k_rope_new[:, :, None, :].expand(
             B, S, H, rope)], -1)
         q_cat = torch.cat([q_nope, q_rope], -1)           # (B, S, H, qk_dim)
-        if should_use_blockwise(B, S, S, cfg.n_heads):
+        if should_use_blockwise(global_rows(B), S, S, cfg.n_heads):
             out = blockwise_sdpa(q_cat, k_cat, v, qpos=positions,
                                  kpos=positions, kind="causal")
         else:
@@ -113,20 +121,30 @@ def mla_attention(x, p, cfg, *, positions, cache=None, cache_index=None,
     # score = q_nope . (c_kv W_uk)^T == (q_nope W_uk^T) . c_kv, so the step
     # reads only the latent cache and never builds (B, T, H, D) keys.
     ck, kr = cache["c_kv"], cache["k_rope"]
-    ck[:, cache_index:cache_index + S] = c_kv
-    kr[:, cache_index:cache_index + S] = k_rope_new
     T = ck.shape[1]
+    lo = slot_range(T)[0] if slots else 0
+    if lo <= cache_index < lo + T:            # this rank holds the slot
+        ck[:, cache_index - lo:cache_index - lo + S] = c_kv
+        kr[:, cache_index - lo:cache_index - lo + S] = k_rope_new
     ckf = ck.float()
     wk = p.wk_up.reshape(R, H, nope).float()
     q_abs = torch.einsum("bshd,rhd->bshr", q_nope.float(), wk)    # (B,1,H,R)
     sc = (torch.einsum("bshr,btr->bhst", q_abs, ckf)
           + torch.einsum("bshd,btd->bhst", q_rope.float(), kr.float())
           ) / math.sqrt(qk_dim)
-    mask = torch.arange(T, device=x.device) <= cache_index
-    sc = torch.where(mask[None, None, None, :], sc, -1e30)
-    w = torch.softmax(sc, dim=-1)
-    ctx = torch.einsum("bhst,btr->bshr", w, ckf)                 # (B,1,H,R)
+    mask = (torch.arange(T, device=x.device) + lo <= cache_index)[
+        None, None, None, :]
+    if slots:
+        num, den = split_softmax(
+            sc, mask, lambda w: torch.einsum("bhst,btr->bhsr", w, ckf))
+        ctx = (num / den).transpose(1, 2)                        # (B,1,H,R)
+    else:
+        sc = torch.where(mask, sc, -1e30)
+        w = torch.softmax(sc, dim=-1)
+        ctx = torch.einsum("bhst,btr->bshr", w, ckf)             # (B,1,H,R)
     wv = p.wv_up.reshape(R, H, m.v_head_dim).float()
     out = torch.einsum("bshr,rhd->bshd", ctx, wv)
     out = out.reshape(B, S, H * m.v_head_dim).to(x.dtype) @ p.wo
+    if split:
+        out = reduce_from_model(out)
     return out, cache

@@ -12,13 +12,21 @@ as one batched product ``(E, cap, d) @ (E, d, d_ff)``: every expert's
 ``cap`` rows run, used or not, as in the reference.
 
 The reference batches the dispatch over G = pod x data groups read from
-its JAX mesh (``_dp_groups``), each a contiguous slice of the batch's
-rows.  The port dispatches every token of a call as one group: without a
-mesh that is the reference's G = 1, and under the sharded train step
-each rank runs the rows of its own (pod, data) slot, so a call is exactly
-one of the reference's groups.  (The reference falls back to G = 1 when
-a group would hold fewer than E / capacity_factor tokens; the port
-keeps its groups there.)
+its mesh (``_dp_groups``), each a contiguous slice of the batch's
+tokens, and falls back to one global group where G does not divide the
+tokens or a group would hold fewer than E / capacity_factor of them
+(``N % G != 0 or (N // G) * capacity_factor < E``).  Groups change the
+capacity, so the drops and the output.  The port takes G and the
+fallback from the current mesh over the *global* token count
+(:func:`dispatch_groups`): its rows lie split over the current
+data-parallel axes (``launch/mesh.py::current_dp_axes``, R ranks), so a
+rank's tokens are G / R of the reference's groups, dispatched as a batch
+of groups (one group where the rows split over pod x data, as the
+train step's always do).  Where the rule falls back to one group over
+split rows, the layer's input rows are all-gathered over those axes
+(``sharding.gather_rows``; its gradient a reduce-scatter back), every
+rank routes and computes the one global group alike and keeps its own
+rows.  Without a mesh this is the reference's G = 1.
 
 The load-balancing term is computed on all of the step's tokens in the
 reference (GSPMD sees the global batch).  Under a mesh each rank holds
@@ -39,12 +47,16 @@ an MLP.  The balance term sees every rank's same rows, unchanged.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..distributed import sharding
 from ..distributed.sharding import (copy_to_model, dp_mean, model_rank,
                                     reduce_from_model)
+from ..launch.mesh import current_dp_axes, current_mesh
 from .layers import MLP, _weight
 
 
@@ -74,23 +86,38 @@ def capacity(n_tokens: int, cfg) -> int:
                             * cfg.capacity_factor)))
 
 
+def dispatch_groups(n_tokens: int, cfg) -> tuple:
+    """(groups, gather) for a call on this rank's ``n_tokens`` tokens
+    (module docstring): how many of the reference's dispatch groups they
+    hold, and whether the fallback to one global group needs every
+    rank's rows gathered first."""
+    sizes = sharding.mesh_sizes(current_mesh())
+    R = math.prod(sizes.get(a, 1) for a in current_dp_axes())
+    G = sizes.get("pod", 1) * sizes.get("data", 1)
+    N = n_tokens * R
+    if N % G or (N // G) * cfg.capacity_factor < cfg.n_experts:
+        return 1, R > 1
+    return G // R, False
+
+
 def route(xf, p, cfg):
-    """Top-k routing of xf (N, d) and its capacity dispatch plan.
+    """Top-k routing of xf (N, d), or of a batch of groups (G, N, d), and
+    its capacity dispatch plan, per group.
 
     Returns (gate, eidx, order, keep, dest, cap): the softmax over the top
     k fp32 router logits and the chosen experts, both (N, K); the stable
     order of the N*K (token, k) slots by expert id; for each slot in that
     order whether it fits its expert's capacity, and its row ``dest`` in
-    the (E * cap) expert grid.
+    the (E * cap) expert grid (each with a leading G for groups).
     """
-    N = xf.shape[0]
+    N = xf.shape[-2]
     E, K = cfg.n_experts, cfg.top_k
-    logits = xf.float() @ p.router                            # (N, E)
-    gate, eidx = torch.topk(logits, K, dim=-1)                # (N, K)
+    logits = xf.float() @ p.router                            # (.., N, E)
+    gate, eidx = torch.topk(logits, K, dim=-1)                # (.., N, K)
     gate = torch.softmax(gate, dim=-1)                        # renorm over top-k
-    flat_e = eidx.reshape(N * K)
-    order = torch.argsort(flat_e, stable=True)                # token order kept
-    sorted_e = flat_e[order]
+    flat_e = eidx.reshape(eidx.shape[:-2] + (N * K,))
+    order = torch.argsort(flat_e, dim=-1, stable=True)        # token order kept
+    sorted_e = torch.gather(flat_e, -1, order)
     cap = capacity(N, cfg)
     first = torch.searchsorted(sorted_e, sorted_e, side="left")
     within = torch.arange(N * K, device=xf.device) - first    # rank in group
@@ -100,54 +127,71 @@ def route(xf, p, cfg):
 
 
 def moe_mlp(x, p, cfg, split=frozenset()):
-    """x (B, S, d) -> (B, S, d): top-k routing with capacity dispatch.
-    ``split``: the sharded step's regions split over ``"model"``
-    (``models/transformer.py::model_plan``): "experts" or
-    "expert_hidden" for the routed experts, "shared" for the shared ones
-    (module docstring)."""
+    """x (B, S, d) -> (B, S, d): top-k routing with capacity dispatch in
+    the reference's groups (module docstring).  ``split``: the sharded
+    step's regions split over ``"model"`` (``models/transformer.py::
+    model_plan``): "experts" or "expert_hidden" for the routed experts,
+    "shared" for the shared ones (module docstring)."""
     B, S, d = x.shape
-    N, E, K = B * S, cfg.n_experts, cfg.top_k
-    xf = x.reshape(N, d)
-    gate, _, order, keep, dest, cap = route(xf, p, cfg)
-    slot_token = order // K                                   # (N*K,)
+    E, K = cfg.n_experts, cfg.top_k
+    x_own = x.reshape(B * S, d)
+    G, gather = dispatch_groups(B * S, cfg)
+    xf = sharding.gather_rows(x_own) if gather else x_own
+    N = xf.shape[0] // G                                      # a group's
+    gate, _, order, keep, dest, cap = route(xf.reshape(G, N, d), p, cfg)
+    slot_token = order // K                                   # (G, N*K)
     E_local = p.wi.shape[0]                   # the experts this rank holds
     routed = bool(split & {"experts", "expert_hidden"})
     lo = model_rank() * E_local if "experts" in split else 0   # own first
     # the split parts' input: every rank's share of its gradient summed
     xin = copy_to_model(xf) if routed or "shared" in split else xf
 
-    # Row N of xpad is the padding row; a dropped slot's write goes to the
-    # extra grid row E*cap, which is cut off (the reference's mode="drop").
-    grid_token = torch.full((E * cap + 1,), N, dtype=torch.long,
+    # Row N of each group's xpad is its padding row; a dropped slot's write
+    # goes to the extra grid row E*cap, which is cut off (the reference's
+    # mode="drop").
+    grid_token = torch.full((G, E * cap + 1), N, dtype=torch.long,
                             device=x.device)
-    grid_token.scatter_(0, torch.where(keep, dest, E * cap), slot_token)
-    xpad = torch.cat([xin if routed else xf, xf.new_zeros((1, d))])
-    xg = xpad[grid_token[lo * cap:(lo + E_local) * cap]].reshape(
-        E_local, cap, d)
+    grid_token.scatter_(1, torch.where(keep, dest, E * cap), slot_token)
+    xpad = torch.cat([(xin if routed else xf).reshape(G, N, d),
+                      xf.new_zeros((G, 1, d))], 1)
+    own = grid_token[:, lo * cap:(lo + E_local) * cap]
+    xg = torch.gather(xpad, 1, own[..., None].expand(-1, -1, d))
+    # (E_local, G * cap, d): every (own) expert's rows of every group
+    xg = xg.reshape(G, E_local, cap, d).transpose(0, 1).reshape(
+        E_local, G * cap, d)
 
     # ---- expert FFN: every (own) expert's cap rows in one batched product
     h = torch.bmm(xg, p.wi)
     g = torch.bmm(xg, p.wg)
-    yg = torch.bmm(F.silu(g) * h, p.wo).to(x.dtype).reshape(E_local * cap, d)
+    yg = torch.bmm(F.silu(g) * h, p.wo).to(x.dtype)
+    yg = yg.reshape(E_local, G, cap, d).transpose(0, 1).reshape(
+        G * E_local * cap, d)
 
     # ---- combine back with the gate weights, in fp32 ---------------------
-    slot_gate = gate.reshape(N * K)[order]
+    slot_gate = torch.gather(gate.reshape(G, N * K), 1, order)
     mine = keep
     if routed:
         slot_gate = copy_to_model(slot_gate)
         mine = keep & (dest >= lo * cap) & (dest < (lo + E_local) * cap)
     contrib = torch.where(mine, slot_gate, 0.0)
-    vals = yg[torch.where(mine, dest - lo * cap, 0)].float()
-    y = torch.zeros((N + 1, d), dtype=torch.float32, device=x.device)
-    y.index_add_(0, torch.where(mine, slot_token, N), vals * contrib[:, None])
-    y = y[:N]
+    base = torch.arange(G, device=x.device)[:, None]
+    vals = yg[(base * (E_local * cap)
+               + torch.where(mine, dest - lo * cap, 0)).reshape(-1)].float()
+    y = torch.zeros((G * (N + 1), d), dtype=torch.float32, device=x.device)
+    y.index_add_(0, (base * (N + 1) + torch.where(mine, slot_token, N))
+                 .reshape(-1), vals * contrib.reshape(-1, 1))
+    y = y.reshape(G, N + 1, d)[:, :N].reshape(G * N, d)
     if routed:
         y = reduce_from_model(y)
+    if gather:
+        y = sharding.local_rows(y)
     out = y.to(x.dtype)
 
     if cfg.n_shared_experts:
         sp = p.shared
-        xs = xin if "shared" in split else xf
+        xs = x_own
+        if "shared" in split:     # the gathered rows' copy is not own
+            xs = copy_to_model(x_own) if gather else xin
         s = (F.silu(xs @ sp.wg) * (xs @ sp.wi)) @ sp.wo
         out = out + (reduce_from_model(s) if "shared" in split else s)
     return out.reshape(B, S, d)

@@ -6,7 +6,7 @@ runs a Python loop over modules).  Entry points:
 
   init_params(cfg, seed, device)                -> Transformer, random weights
   Transformer.forward(tokens | embeds, ...)     -> logits (B, S, V), aux [, cache]
-  Transformer.init_cache(B, max_seq)            -> contiguous decode cache
+  Transformer.init_cache(B, max_seq)            -> decode cache (a rank's, sharded)
   Transformer.decode_step(tokens, cache, index) -> logits (B, V) fp32, cache
   cross_entropy(logits, labels, mask=None)      -> mean token CE (fp32)
   vocab_parallel_cross_entropy(...)             -> the same, logits split over "model"
@@ -32,6 +32,16 @@ is vocab-parallel (each rank looks up the ids of its vocab rows, summed
 over the axis) and so are the logits: each rank's hold its own vocab
 columns, for :func:`vocab_parallel_cross_entropy`.
 
+Sharded serving (``serve/steps.py``) runs the same plan: ``decode_step``
+fetches each block's weights as the forward does and hands the block its
+split regions (``Block.decode``'s ``split``), on this rank's rows, in
+the layout of a ``sharding.RankCache`` that ``init_cache`` or a prefill
+(``build_cache_len``) returns: the rank's rows, its KV heads where a
+block splits ``"kv"`` (every KV head otherwise), for one row its run of
+the slots over ``"data"`` (``sharding.slots_split``: attention and MLA
+then merge their softmaxes across the axis); MLA's latent and the
+recurrent states are every rank's of ``"model"``.
+
 ``forward`` returns the reference's aux term with the logits: the sum of
 every ``moe``/``moe_swa`` layer's load-balancing loss (fp32 scalar, zero
 for a stack without MoE).  The caches are lists with one entry per layer
@@ -54,12 +64,12 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.func import functional_call
+from torch.nn.utils.stateless import _reparametrize_module
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..distributed import sharding
-from ..launch.mesh import current_mesh, mesh_context
+from ..launch.mesh import current_dp_axes, current_mesh, mesh_context
 from . import mla as mla_lib
 from . import moe as moe_lib
 from . import ssm as ssm_lib
@@ -73,6 +83,16 @@ CELLS = {"mlstm": (ssm_lib.MLSTM, ssm_lib.mlstm_block),
 
 def _window(kind, cfg):
     return cfg.swa_window if kind in ("swa", "moe_swa", "hybrid") else None
+
+
+def kv_len(kind, cfg, max_seq) -> int:
+    """The slots of a ``kind`` layer's decode cache of ``max_seq``
+    (``Transformer.init_cache``)."""
+    if _window(kind, cfg) is not None:
+        # SWA layers keep a ring of window + slack slots; masking uses the
+        # stored true positions, so decode carries O(window) state.
+        return min(max_seq, max(cfg.swa_window + 128, 256))
+    return max_seq
 
 
 def _norm(x, p, cfg):
@@ -163,9 +183,12 @@ class Block(nn.Module):
                 cache = {"kv": cache, "ssm": st}
         return x, aux, cache
 
-    def decode(self, x, c, cfg, index, positions):
+    def decode(self, x, c, cfg, index, positions, split=frozenset(),
+               slots=False):
         """One token against this layer's cache entry ``c`` (KV written in
-        place); returns (x, the layer's new cache entry)."""
+        place); returns (x, the layer's new cache entry).  ``split`` as in
+        :meth:`forward`; ``slots``: the entry holds this rank's run of
+        slots split over ``"data"`` (``sharding.slots_split``)."""
         h = _norm(x, self.norm1, cfg)
         if self.kind in CELLS:
             out, st = CELLS[self.kind][1](h, self.cell, cfg, state=c)
@@ -173,18 +196,23 @@ class Block(nn.Module):
         if self.kind == "mla":
             a, nc = mla_lib.mla_attention(h, self.attn, cfg,
                                           positions=positions, cache=c,
-                                          cache_index=index)
-            return self._ffn(x + a, cfg)[0], nc
+                                          cache_index=index, split=split,
+                                          slots=slots)
+            return self._ffn(x + a, cfg, split)[0], nc
         kv = c["kv"] if self.kind in HYBRID_KINDS else c
-        slot = index % kv["k"].shape[1]     # identity for full-length caches
+        T = kv["k"].shape[1]
+        if slots:
+            T = sharding.slot_range(T)[1]
+        slot = index % T                    # identity for full-length caches
         a, kv = attention(h, self.attn, cfg, positions=positions,
                           window=_window(self.kind, cfg), cache=kv,
-                          cache_index=slot, true_index=index)
+                          cache_index=slot, true_index=index, split=split,
+                          slots=slots)
         if self.kind not in HYBRID_KINDS:
-            return self._ffn(x + a, cfg)[0], kv
+            return self._ffn(x + a, cfg, split)[0], kv
         s, st = ssm_lib.mamba_block(h, self.cell, cfg, state=c["ssm"])
-        return self._ffn(self._mix(x, a, s, cfg), cfg)[0], {"kv": kv,
-                                                             "ssm": st}
+        return self._ffn(self._mix(x, a, s, cfg), cfg, split)[0], {
+            "kv": kv, "ssm": st}
 
 
 def _ring_from_full(k, v, kv_len):
@@ -220,6 +248,29 @@ def _pad_cache_to(kv, max_seq):
     pos = torch.full((B, max_seq), -1, dtype=torch.int32, device=k.device)
     pos[:, :S] = torch.arange(S, dtype=torch.int32, device=k.device)
     return {"k": _pad_seq(k, max_seq), "v": _pad_seq(v, max_seq), "pos": pos}
+
+
+def _slot_dicts(entry) -> list:
+    """The dicts of a layer's cache entry whose tensors hold KV slots
+    (dim 1): a KV or MLA latent dict, a hybrid layer's ``"kv"``; none for
+    a recurrent state."""
+    if isinstance(entry, tuple):
+        return []
+    return [entry["kv"]] if "kv" in entry else [entry]
+
+
+def _n_slots(entry) -> int:
+    return next(iter(_slot_dicts(entry)[0].values())).shape[1]
+
+
+def _own_slots(entry):
+    """``entry`` with its slots cut to this rank's run of ``T / data``
+    (copies, so the whole sequence is not kept alive)."""
+    if "kv" in entry:
+        return {"kv": _own_slots(entry["kv"]), "ssm": entry["ssm"]}
+    n = _n_slots(entry) // sharding.mesh_axis_size("data")
+    lo = sharding.slot_range(n)[0]
+    return {k: t[:, lo:lo + n].clone() for k, t in entry.items()}
 
 
 def _keep_all(cuts: dict, units: dict) -> bool:
@@ -367,27 +418,51 @@ class Transformer(nn.Module):
         return embed, norm, (embed.T if self.cfg.tie_embeddings
                              else w["unembed"])
 
-    def mesh_scope(self):
+    def mesh_scope(self, rows=None):
         """A context in which the current mesh is this sharded model's
         (``launch/mesh.py::mesh_context``, unless one is current already),
         for the collectives of its split regions and of the vocab-parallel
-        loss; a null context on a model that is not sharded."""
+        loss; a null context on a model that is not sharded.  ``rows``:
+        the data-parallel axes that split the rows this rank is handed
+        (default pod x data, the train step's); a serving step passes
+        ``sharding.row_axes`` of its batch."""
         if self.gather is None or current_mesh() is not None:
             return contextlib.nullcontext()
-        return mesh_context(self.embed.device_mesh)
+        if rows is None:
+            return mesh_context(self.embed.device_mesh)
+        return mesh_context(self.embed.device_mesh, dp_axes=rows)
 
-    def _block(self, blk, *args):
-        """``blk(*args)``, on a sharded model on its weights fetched in the
-        modes of :func:`model_plan` (in its mesh's scope, also when the
-        backward recomputes it)."""
+    def block_plan(self, blk) -> Plan:
+        """:func:`model_plan` of block ``blk`` of this sharded model."""
+        return model_plan(blk.kind, self.cfg, {
+            n: sharding.model_cut(p) for n, p in blk.named_parameters()})
+
+    def _block(self, fn, *args, **kw):
+        """``fn(*args, **kw)``, ``fn`` a block or its bound ``decode``; on
+        a sharded model on the block's weights fetched in the modes of
+        :func:`model_plan`, with its split regions (in its mesh's scope,
+        also when the backward recomputes it)."""
         if self.gather is None:
-            return blk(*args)
-        named = dict(blk.named_parameters())
-        plan = model_plan(blk.kind, self.cfg, {
-            n: sharding.model_cut(p) for n, p in named.items()})
-        with self.mesh_scope():
-            return functional_call(blk, self.gather(named, plan.modes), args,
-                                   {"split": plan.split})
+            return fn(*args, **kw)
+        blk = getattr(fn, "__self__", fn)
+        plan = self.block_plan(blk)
+        with self.mesh_scope(), _reparametrize_module(
+                blk, self.gather(dict(blk.named_parameters()), plan.modes)):
+            return fn(*args, split=plan.split, **kw)
+
+    def _embed(self, tokens, embed, split_vocab: bool):
+        """Token ids -> embeddings; vocab-parallel where ``split_vocab``:
+        this rank's rows, zeros for the others' ids, summed over
+        ``"model"``."""
+        if split_vocab:
+            ids = tokens.long() - sharding.model_rank() * embed.shape[0]
+            mine = (ids >= 0) & (ids < embed.shape[0])
+            x = F.embedding(torch.where(mine, ids, 0), embed)
+            return sharding.reduce_from_model(
+                torch.where(mine[..., None], x, 0))
+        # embed[tokens]'s values; its backward is the embedding-gradient
+        # kernel, not the indexing one
+        return F.embedding(tokens, embed)
 
     def forward(self, tokens=None, embeds=None, mrope_positions=None,
                 build_cache_len=None, last_logit_only=False):
@@ -412,16 +487,8 @@ class Transformer(nn.Module):
         top = self.top_plan()
         embed, final_norm, unembed = self._top_weights(top)
         split_vocab = "vocab" in top.split
-        if embeds is None and split_vocab:
-            # vocab-parallel: this rank's rows, zeros for the others' ids
-            ids = tokens.long() - sharding.model_rank() * embed.shape[0]
-            mine = (ids >= 0) & (ids < embed.shape[0])
-            x = F.embedding(torch.where(mine, ids, 0), embed)
-            x = sharding.reduce_from_model(torch.where(mine[..., None], x, 0))
-        elif embeds is None:
-            # embed[tokens]'s values; its backward is the embedding-gradient
-            # kernel, not the indexing one
-            x = F.embedding(tokens, embed)
+        if embeds is None:
+            x = self._embed(tokens, embed, split_vocab)
         else:
             x = embeds.to(embed.dtype)
         B, S = x.shape[:2]
@@ -447,17 +514,39 @@ class Transformer(nn.Module):
             x = sharding.copy_to_model(x)
         logits = x @ unembed
         if build_cache_len is not None:
+            if self.gather is not None:
+                caches = self._rank_cache(caches, B)
             return logits, aux_total, caches
         return logits, aux_total
 
-    def _init_block_cache(self, kind, B, max_seq):
+    def _rank_cache(self, entries, B: int):
+        """A prefill's per-layer caches over this rank's ``B`` rows as a
+        ``sharding.RankCache``: the slots of each layer cut to the rank's
+        run where they split over ``"data"``."""
+        sizes = sharding.mesh_sizes(current_mesh())
+        rows = sharding.global_rows(B)
+        kv_split, slots = set(), set()
+        for i, (blk, e) in enumerate(zip(self.layers, entries)):
+            if "kv" in self.block_plan(blk).split:
+                kv_split.add(i)
+            if _slot_dicts(e) and sharding.slots_split(rows, _n_slots(e),
+                                                       sizes):
+                slots.add(i)
+                entries[i] = _own_slots(e)
+        return sharding.RankCache(
+            entries, [a for a in current_dp_axes() if sizes.get(a, 1) > 1],
+            kv_split, slots)
+
+    def _init_block_cache(self, kind, B, max_seq, kvh=None, slots=1):
+        """``slots``: into how many runs the KV slots are split (this
+        rank's is made); ``kvh``: the KV heads held (default all)."""
         cfg, dev, dtype = self.cfg, self.device, self.embed.dtype
         f32 = dict(dtype=torch.float32, device=dev)
         if kind == "mla":
-            m = cfg.mla
-            return {"c_kv": torch.zeros((B, max_seq, m.kv_lora_rank),
+            m, T = cfg.mla, max_seq // slots
+            return {"c_kv": torch.zeros((B, T, m.kv_lora_rank),
                                         dtype=dtype, device=dev),
-                    "k_rope": torch.zeros((B, max_seq, m.qk_rope_head_dim),
+                    "k_rope": torch.zeros((B, T, m.qk_rope_head_dim),
                                           dtype=dtype, device=dev)}
         if kind == "mlstm":
             H, dk = cfg.n_heads, cfg.d_model // cfg.n_heads
@@ -466,17 +555,13 @@ class Transformer(nn.Module):
         if kind == "slstm":
             return tuple(torch.zeros((B, cfg.d_model), **f32)
                          for _ in range(4))
-        kv_len = max_seq
-        if _window(kind, cfg) is not None:
-            # SWA layers keep a ring of window + slack slots; masking uses
-            # the stored true positions, so decode carries O(window) state.
-            kv_len = min(max_seq, max(cfg.swa_window + 128, 256))
+        n_slots = kv_len(kind, cfg, max_seq) // slots
         int8 = cfg.kv_cache_dtype == "int8"
-        shape = (B, kv_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+        shape = (B, n_slots, kvh or cfg.n_kv_heads, cfg.resolved_head_dim)
         kv_dtype = torch.int8 if int8 else dtype
         kv = {"k": torch.zeros(shape, dtype=kv_dtype, device=dev),
               "v": torch.zeros(shape, dtype=kv_dtype, device=dev),
-              "pos": torch.full((B, kv_len), -1, dtype=torch.int32,
+              "pos": torch.full((B, n_slots), -1, dtype=torch.int32,
                                 device=dev)}
         if int8:
             kv["k_scale"] = torch.zeros(shape[:3], **f32)
@@ -490,10 +575,42 @@ class Transformer(nn.Module):
         return kv
 
     def init_cache(self, B, max_seq):
-        """The decode cache, one entry per layer (module docstring); KV in
-        int8 with fp32 scales when ``cfg.kv_cache_dtype == "int8"``."""
-        return [self._init_block_cache(blk.kind, B, max_seq)
-                for blk in self.layers]
+        """The decode cache of ``B`` rows, one entry per layer (module
+        docstring); KV in int8 with fp32 scales when ``cfg.kv_cache_dtype
+        == "int8"``.  On a sharded model, this rank's piece of it as a
+        ``sharding.RankCache``: its rows (``sharding.row_axes``), its KV
+        heads where the layer's plan splits ``"kv"`` over ``"model"``
+        (every KV head otherwise), for ``B == 1`` its run of the slots
+        where they split over ``"data"`` (``sharding.slots_split``); MLA's
+        latent and the recurrent states are every rank's of the axis."""
+        if self.gather is None:
+            return [self._init_block_cache(blk.kind, B, max_seq)
+                    for blk in self.layers]
+        return self.rank_cache(
+            B, max_seq, sharding.mesh_sizes(self.embed.device_mesh),
+            [self.block_plan(blk).split for blk in self.layers])
+
+    def rank_cache(self, B, max_seq, sizes: dict, splits: list):
+        """One rank's piece of the decode cache of ``B`` rows on a mesh of
+        ``sizes`` whose blocks split the regions ``splits`` (one set a
+        layer, ``Plan.split``), as :meth:`init_cache` lays it out (the
+        dry-run builds it on ``meta``)."""
+        m, data = sizes.get("model", 1), sizes.get("data", 1)
+        entries, kv_split, slots = [], set(), set()
+        for i, (blk, split) in enumerate(zip(self.layers, splits)):
+            kvh = None
+            if "kv" in split:
+                kv_split.add(i)
+                kvh = self.cfg.n_kv_heads // m
+            n = 1
+            if blk.kind not in CELLS and sharding.slots_split(
+                    B, kv_len(blk.kind, self.cfg, max_seq), sizes):
+                slots.add(i)
+                n = data
+            entries.append(self._init_block_cache(
+                blk.kind, sharding.rows_per_rank(B, sizes), max_seq, kvh, n))
+        return sharding.RankCache(entries, sharding.row_axes(B, sizes),
+                                  kv_split, slots)
 
     @torch.no_grad()
     def decode_step(self, tokens, cache, index: int):
@@ -501,17 +618,29 @@ class Transformer(nn.Module):
 
         Returns (logits (B, V) fp32, cache); KV is written in place and
         each recurrent layer's entry of the list is replaced by its new
-        state.
+        state.  On a sharded model (module docstring) ``tokens`` are this
+        rank's rows of its ``cache`` (a ``sharding.RankCache``), each
+        block runs on its weights fetched by its plan with its split
+        regions, the embedding is vocab-parallel where the vocab is split
+        and the logits (B', V') are this rank's vocab columns
+        (``sharding.vocab_argmax`` reads them); no weight is gathered
+        along ``"model"`` but the plan's exceptions.
         """
         cfg = self.cfg
         B = tokens.shape[0]
-        x = self.embed[tokens][:, None, :]
-        positions = torch.full((B, 1), index, dtype=torch.int32,
-                               device=x.device)
-        for i, blk in enumerate(self.layers):
-            x, cache[i] = blk.decode(x, cache[i], cfg, index, positions)
-        x = _norm(x, self.final_norm, cfg)
-        return (x[:, 0] @ self.unembed_weight()).float(), cache
+        slots = getattr(cache, "slots", frozenset())
+        with self.mesh_scope(getattr(cache, "rows", None)):
+            top = self.top_plan()
+            embed, final_norm, unembed = self._top_weights(top)
+            x = self._embed(tokens, embed, "vocab" in top.split)[:, None, :]
+            positions = torch.full((B, 1), index, dtype=torch.int32,
+                                   device=x.device)
+            for i, blk in enumerate(self.layers):
+                x, cache[i] = self._block(blk.decode, x, cache[i], cfg,
+                                          index, positions,
+                                          slots=i in slots)
+            x = _norm(x, final_norm, cfg)
+            return (x[:, 0] @ unembed).float(), cache
 
 
 def param_count(model) -> int:

@@ -51,9 +51,10 @@ def active_params(cfg) -> float:
     return total
 
 
-class TrainPlan(NamedTuple):
-    """The sharded train step's plan of a config on a mesh
-    (:func:`train_plan`): ``modes``, ``{name: mode}`` of every parameter
+class StepPlan(NamedTuple):
+    """The plan of a config on a mesh (:func:`step_plan`) that the sharded
+    train step and the sharded serving steps (``serve/steps.py``) both
+    run: ``modes``, ``{name: mode}`` of every parameter
     (``sharding.MODES``); ``layers``, each layer's regions split over
     ``"model"`` (``models/transformer.py::REGIONS``); ``top``, the top
     weights' ("vocab" where the vocab is split)."""
@@ -62,8 +63,8 @@ class TrainPlan(NamedTuple):
     top: frozenset
 
 
-def train_plan(cfg, sizes: dict) -> TrainPlan:
-    """The :class:`TrainPlan` on a mesh of ``sizes``: each block's by
+def step_plan(cfg, sizes: dict) -> StepPlan:
+    """The :class:`StepPlan` on a mesh of ``sizes``: each block's by
     ``models/transformer.py::model_plan``, the top weights' by its
     ``vocab_plan`` (the functions the step runs), fed the ``"model"`` cuts
     of ``param_specs``; mode "full" where they name none."""
@@ -75,8 +76,7 @@ def train_plan(cfg, sizes: dict) -> TrainPlan:
     cuts = {n: spec_model_cut(s, specs[n], sizes) for n, s in shapes.items()}
     modes = dict.fromkeys(shapes, "full")
     layers = []
-    kinds = [k for k, c in cfg.segments for _ in range(c)]
-    for i, kind in enumerate(kinds):
+    for i, kind in enumerate(_kinds(cfg)):
         pre = f"layers.{i}."
         plan = model_plan(kind, cfg, {n[len(pre):]: c for n, c in
                                       cuts.items() if n.startswith(pre)})
@@ -85,15 +85,15 @@ def train_plan(cfg, sizes: dict) -> TrainPlan:
     top = vocab_plan({n: c for n, c in cuts.items()
                       if not n.startswith("layers.")})
     modes.update(top.modes)
-    return TrainPlan(modes, layers, top.split)
+    return StepPlan(modes, layers, top.split)
 
 
 def active_params_per_rank(cfg, sizes: dict) -> float:
-    """:func:`active_params` of one rank of the sharded train step: a
-    weight the plan keeps split over ``"model"`` (:func:`train_plan`)
-    counts 1/m, the rest in full (every rank of the axis repeats that
-    compute)."""
-    modes = train_plan(cfg, sizes).modes
+    """:func:`active_params` of one rank of the sharded train or serving
+    step: a weight the plan keeps split over ``"model"``
+    (:func:`step_plan`) counts 1/m, the rest in full (every rank of the
+    axis repeats that compute)."""
+    modes = step_plan(cfg, sizes).modes
     m = sizes.get("model", 1)
     total = 0.0
     for path, (shape, _) in param_shapes(cfg).items():
@@ -210,14 +210,16 @@ class _Wire:
 
 
 def plan_collective_bytes(cfg, mesh_sizes: dict, kind: str, *,
-                          microbatches: int = 1, tokens: int = 0) -> dict:
+                          microbatches: int = 1, tokens: int = 0,
+                          batch: int = 0, cache_len: int = 0) -> dict:
     """Per-rank wire bytes of one step of the port's plan on a mesh of
     ``mesh_sizes`` (``{axis: size}``, axes in mesh order), by fabric and by
     collective: ``{"nvlink", "net", "by_kind"}``; ``tokens`` are the
-    rank's tokens a step (its rows x the sequence).
+    rank's tokens a step (its rows x the sequence), ``batch`` a serving
+    step's global rows and ``cache_len`` its decode cache's length.
 
     Counts the plan of ``distributed/sharding.py``, not HLO.  ``train``
-    (the sharded step, split over ``"model"``; its :func:`train_plan`):
+    (the sharded step, split over ``"model"``; its :func:`step_plan`):
 
     * a weight is all-gathered over ``"data"`` where it is sharded there,
       and over ``"model"`` only where the plan gathers it ("full" or
@@ -246,11 +248,30 @@ def plan_collective_bytes(cfg, mesh_sizes: dict, kind: str, *,
       all-reduces the
       embedding's output, the unembedding's input gradient, and the
       loss's max, sum of exps and gold logit (fp32, a token each);
+    * a MoE layer whose tokens fall back to one dispatch group
+      (``models/moe.py::dispatch_groups``) all-gathers its input rows over
+      the data-parallel axes, once a forward and once more in a block's
+      recompute, and reduce-scatters their gradient back; its routed
+      combine, gates and input gradient then span every rank's rows;
     * scalars (the loss, the norm, the MoE fractions) are not counted.
 
-    Serving cells (``SERVE_PLAN``, hypothetical) gather every parameter
-    to full over the mesh axes that shard it, once a pass, and move no
-    activation.
+    ``prefill`` and ``decode`` (the sharded serving steps of
+    ``serve/steps.py``, on the same :func:`step_plan`; an encoder-only
+    ``prefill`` is the encode step), once a step over the rows of
+    ``sharding.row_axes(batch)``: each weight gathered as the train
+    plan's forward does (over ``"data"``, and over ``"model"`` only the
+    exceptions), no gradient; with ``tokens``, the split regions'
+    all-reduces of their outputs over ``"model"`` (the vocab-parallel
+    embedding's too); a MoE layer's row gathers where it falls back to
+    one group, and in a prefill the balance term's fractions (fp32, E
+    each) all-reduced over each row axis; in a decode step of one row
+    whose slots split over ``"data"`` (``sharding.slots_split``), each
+    attention layer's merge there (the max, then the sums of exps and of
+    weighted values in one all-reduce, fp32); then the outputs made
+    whole: a prefill's last logits or the encode step's logits gathered
+    over ``"model"`` (the vocab) and then over the row axes, a decode
+    step's greedy ids (the max and the lowest id over ``"model"``, fp32
+    and int64) gathered over the row axes as int32.
     """
     from ..distributed.sharding import param_specs
 
@@ -260,8 +281,8 @@ def plan_collective_bytes(cfg, mesh_sizes: dict, kind: str, *,
     wire = _Wire(mesh_sizes)
     train = kind == "train"
     passes = microbatches if train else 1
-    plan = train_plan(cfg, mesh_sizes) if train else None
-    modes = plan.modes if train else {}
+    plan = step_plan(cfg, mesh_sizes)
+    modes = plan.modes
     for name, (shape, item) in shapes.items():
         spec = specs[name]
         mode = modes.get(name, "full")
@@ -293,34 +314,132 @@ def plan_collective_bytes(cfg, mesh_sizes: dict, kind: str, *,
                 wire.add("all-reduce", "data", g, passes)
         if "pod" in axes:
             wire.add("all-reduce", "pod", g)
-    if train and tokens and "model" in axes:
+    if train and tokens:
         _activation_all_reduces(wire, cfg, plan, tokens / microbatches,
                                 passes)
+    if not train and tokens:
+        _serving_activations(wire, cfg, plan,
+                             kind, tokens, batch, cache_len)
     return wire.out
 
 
-def _activation_all_reduces(wire, cfg, plan: TrainPlan, tok: float,
+def _item(cfg) -> int:
+    return 4 if cfg.dtype == "float32" else 2
+
+
+def _kinds(cfg) -> list:
+    return [k for k, c in cfg.segments for _ in range(c)]
+
+
+def _moe_gathers(cfg, sizes: dict, tok: float, rows: tuple) -> int:
+    """How many ranks' rows a MoE layer dispatches as one group: R where
+    the reference's groups over ``tok`` tokens a rank (split over the
+    ``rows`` axes, R ranks) fall back to one global group
+    (``models/moe.py::dispatch_groups``), else 1 (no gather)."""
+    R = math.prod(sizes[a] for a in rows)
+    G = sizes.get("pod", 1) * sizes.get("data", 1)
+    N = int(tok) * R
+    fallback = N % G or (N // G) * cfg.capacity_factor < cfg.n_experts
+    return R if fallback and R > 1 else 1
+
+
+def _row_gather(wire, sizes: dict, rows: tuple, nbytes: float,
+                times: float = 1) -> None:
+    """All-gathers of ``nbytes`` a rank over the ``rows`` axes, the
+    innermost first (``sharding.gather_rows``)."""
+    for a in reversed(rows):
+        nbytes *= sizes[a]
+        wire.add("all-gather", a, nbytes, times)
+
+
+def _activation_all_reduces(wire, cfg, plan: StepPlan, tok: float,
                             passes: int) -> None:
     """The split regions' all-reduces over ``"model"`` of ``passes``
-    microbatches of ``tok`` tokens a rank (:func:`plan_collective_bytes`)."""
-    item = 4 if cfg.dtype == "float32" else 2
+    microbatches of ``tok`` tokens a rank, and the row gathers of the MoE
+    layers that fall back to one group (:func:`plan_collective_bytes`)."""
+    sizes = wire.sizes
+    item = _item(cfg)
     act = tok * cfg.d_model * item
     remat = cfg.remat == "layer"
-    for split in plan.layers:
+    rows = tuple(a for a in ("pod", "data") if sizes.get(a, 1) > 1)
+    for kind, split in zip(_kinds(cfg), plan.layers):
+        R = (_moe_gathers(cfg, sizes, tok, rows)
+             if kind in ("moe", "moe_swa") else 1)
+        if R > 1:                       # forward (and recompute) gathers,
+            _row_gather(wire, sizes, rows, act, passes * (1 + remat))
+            n = act * R                 # the gradient's reduce-scatters
+            for a in rows:
+                wire.add("reduce-scatter", a, n, passes)
+                n /= sizes[a]
+        if "model" not in sizes:
+            continue
         routed = split & {"experts", "expert_hidden"}
         fwd = ([act] if "attn" in split else []) + (
-            [tok * cfg.d_model * 4] if routed else []) + (
+            [tok * R * cfg.d_model * 4] if routed else []) + (
             [act] if split & {"mlp", "shared"} else [])
         rec = fwd[:-1] if "mlp" in split else fwd
         bwd = ([act] if "attn" in split else []) + (
             [act] if split & {"mlp", "shared"} else [])
         if routed:
-            bwd.append(tok * cfg.top_k * 4)              # the gates
-            if "shared" not in split:                    # the input's own
-                bwd.append(act)
+            bwd.append(tok * R * cfg.top_k * 4)          # the gates
+            if "shared" not in split or R > 1:           # the input's own
+                bwd.append(act * R)
         for nbytes in fwd + bwd + (rec if remat else []):
             wire.add("all-reduce", "model", nbytes, passes)
     if "vocab" in plan.top:
-        wire.add("all-reduce", "model", act, passes)      # the embedding
+        if not cfg.encoder_only:                          # the embedding
+            wire.add("all-reduce", "model", act, passes)
         wire.add("all-reduce", "model", act, passes)      # logits' input
         wire.add("all-reduce", "model", tok * 4, 3 * passes)   # the loss
+
+
+def _serving_activations(wire, cfg, plan: StepPlan, kind: str,
+                         tokens: float, batch: int, cache_len: int) -> None:
+    """A serving step's activation collectives (:func:`
+    plan_collective_bytes`): ``tokens`` a rank over the rows of a
+    ``batch``-row batch."""
+    from ..distributed.sharding import row_axes, rows_per_rank, slots_split
+    from ..models.transformer import kv_len
+
+    sizes = wire.sizes
+    item, d = _item(cfg), cfg.d_model
+    rows = row_axes(batch, sizes)
+    B = rows_per_rank(batch, sizes)
+    seq = tokens / B
+    act = tokens * d * item
+    m = sizes.get("model", 1)
+    if "vocab" in plan.top and not cfg.encoder_only:
+        wire.add("all-reduce", "model", act)              # the embedding
+    for lk, split in zip(_kinds(cfg), plan.layers):
+        if "attn" in split:
+            wire.add("all-reduce", "model", act)
+        if lk in ("moe", "moe_swa"):
+            R = _moe_gathers(cfg, sizes, tokens, rows)
+            if R > 1:
+                _row_gather(wire, sizes, rows, act)
+            if split & {"experts", "expert_hidden"}:
+                wire.add("all-reduce", "model", tokens * R * d * 4)
+            if kind == "prefill":                         # balance term
+                for a in rows:
+                    wire.add("all-reduce", a, cfg.n_experts * 4)
+        if split & {"mlp", "shared"}:
+            wire.add("all-reduce", "model", act)
+        if (kind == "decode" and lk not in ("mlstm", "slstm")
+                and slots_split(batch, kv_len(lk, cfg, cache_len), sizes)):
+            H = cfg.n_heads // (m if "attn" in split else 1)
+            D = (cfg.mla.kv_lora_rank if lk == "mla"
+                 else cfg.resolved_head_dim)
+            wire.add("all-reduce", "data", B * H * 4)          # the max
+            wire.add("all-reduce", "data", B * H * (D + 1) * 4)
+    V = cfg.vocab // (m if "vocab" in plan.top else 1)
+    if kind == "decode":
+        if "vocab" in plan.top:
+            wire.add("all-reduce", "model", B * 4)        # the max
+            wire.add("all-reduce", "model", B * 8)        # the lowest id
+        _row_gather(wire, sizes, rows, B * 4)
+        return
+    out = B * (seq if cfg.encoder_only else 1) * V * item
+    if "vocab" in plan.top:
+        out *= m
+        wire.add("all-gather", "model", out)
+    _row_gather(wire, sizes, rows, out)

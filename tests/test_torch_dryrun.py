@@ -11,8 +11,12 @@ bytes against the bytes JAX's ``param_specs`` and ``eval_shape`` give;
 ``registry.all_configs`` against JAX's.  The port alone: the train plan's
 count, split over "model" (qwen3-8b reduced on a (2, 2) mesh; a dense
 and a MoE ``train_4k`` cell on 2 x 16 x 16: per-rank FLOPs and the
-gathers along "model" and "data"), the whole dry-run over all 40 cells x
-{single, multi} on meta, and its CLI writing and resuming a JSONL.
+gathers along "model" and "data"), the serving plan's count (the
+serving steps' own layout, whose bytes ``tests/
+test_torch_sharded_serving.py`` holds equal to a ``gloo`` step's), the
+whole dry-run over all 40 cells x {single, multi} on meta (no record
+counts a hypothetical plan; each serving record's wire bytes are
+``plan_collective_bytes``'), and its CLI writing and resuming a JSONL.
 """
 import dataclasses
 import json
@@ -100,7 +104,7 @@ def test_lower_cell_on_reduced_cells(kind, arch):
     assert not dist.is_initialized()
     assert rec["n_devices"] == 8 and rec["mesh"] == "2x2x2"
     assert rec["plan"] == (dryrun.PLAN if kind == "train"
-                           else dryrun.SERVE_PLAN)
+                           else dryrun.SERVING_PLAN)
     per_rank = rec["per_rank_bytes"]
     assert per_rank["params"] == _jax_param_bytes_per_rank(
         jregistry.get_config(arch).reduced())
@@ -121,8 +125,9 @@ def test_plan_collective_bytes_counts_the_plan():
     only, a split one 1/2 of it, once a forward and once more for a
     layer's recompute; per weight a reduce-scatter over "data" where it
     is sharded there; the activations' all-reduces over "model" come with
-    the tokens.  The serving layout (hypothetical) gathers every weight
-    over both axes, once."""
+    the tokens.  The serving plan gathers each weight as the train
+    plan's forward does, once, with no gradient: over "data" only (1/2
+    of a split weight), nothing along "model"."""
     cfg = registry.get_config("qwen3-8b").reduced()
     sizes = {"data": 2, "model": 2}
     train = analysis.plan_collective_bytes(cfg, sizes, "train")
@@ -131,7 +136,7 @@ def test_plan_collective_bytes_counts_the_plan():
     shapes = analysis.param_shapes(cfg)
     specs = param_specs({n: shape for n, (shape, _) in shapes.items()},
                         sizes)
-    plan = analysis.train_plan(cfg, sizes)
+    plan = analysis.step_plan(cfg, sizes)
     modes = plan.modes
     assert modes["layers.0.attn.wq"] == modes["layers.0.mlp.wo"] == "local"
     assert plan.layers == [{"attn", "kv", "mlp"}] * cfg.n_layers
@@ -142,7 +147,9 @@ def test_plan_collective_bytes_counts_the_plan():
                for n, (s, it) in shapes.items() if "data" in specs[n])
     assert train["by_axis"]["all-gather/data"] == want
     assert "all-gather/model" not in train["by_axis"]
-    assert serve["by_axis"]["all-gather/model"] > 0
+    assert serve["by_axis"] == {"all-gather/data": sum(
+        math.prod(s) * it / (2 if modes[n] == "local" else 1) / 2
+        for n, (s, it) in shapes.items() if "data" in specs[n])}
     assert "reduce-scatter" not in serve["by_kind"]
     n_data = sum("data" in s for s in specs.values())
     assert train["by_kind"]["reduce-scatter"]["count"] == n_data
@@ -167,7 +174,7 @@ def test_train_4k_counts_the_split_plan(arch):
     sizes = {"pod": 2, "data": 16, "model": 16}
     rec = dryrun.lower_cell(arch, "train_4k", sizes)
     assert rec["status"] == "ok" and rec["plan"] == dryrun.PLAN
-    modes = analysis.train_plan(cfg, sizes).modes
+    modes = analysis.step_plan(cfg, sizes).modes
     pshapes = analysis.param_shapes(cfg)
     tokens = rec["rows_per_rank"] * 4096
     passes = 4                                     # remat "layer"
@@ -201,6 +208,49 @@ def test_train_4k_counts_the_split_plan(arch):
         + wires["net"] / hardware.H100[hardware.PLANNED]["net_bw"])
 
 
+@pytest.mark.parametrize("arch,shape", [
+    ("deepseek-moe-16b", "decode_32k"), ("mixtral-8x22b", "prefill_32k"),
+    ("hymba-1.5b", "long_500k"), ("hubert-xlarge", "prefill_32k")])
+def test_serving_records_count_the_serving_plan(arch, shape):
+    """A serving record on 16 x 16 counts the port's serving plan: its
+    wire bytes are ``plan_collective_bytes`` of the step (the rank's
+    tokens, the global batch, the cache's length), its cache the piece
+    ``Transformer.rank_cache`` lays out (KV heads over "model" where the
+    plan splits them, one row's slots over "data"), and its FLOPs the
+    split plan's."""
+    cfg = registry.get_config(arch)
+    sizes = {"data": 16, "model": 16}
+    sp = shapes.SHAPES[shape]
+    rec = dryrun.lower_cell(arch, shape, sizes)
+    assert rec["status"] == "ok" and rec["plan"] == dryrun.SERVING_PLAN
+    rows = rec["rows_per_rank"]
+    tokens = rows * (1 if sp.kind == "decode" else sp.seq_len)
+    wires = analysis.plan_collective_bytes(
+        cfg, sizes, sp.kind, tokens=tokens, batch=sp.global_batch,
+        cache_len=sp.seq_len)
+    assert rec["roofline"]["by_kind"] == json.loads(json.dumps(
+        wires["by_kind"]))
+    assert rec["roofline"]["nvlink_bytes_per_dev"] == wires["nvlink"]
+    assert rec["roofline"]["net_bytes_per_dev"] == wires["net"]
+    assert wires["by_axis"]["all-reduce/model"] > 0
+    plan = analysis.step_plan(cfg, sizes)
+    cache = dryrun._tree_bytes(dryrun.Transformer(cfg, device="meta")
+                               .rank_cache(sp.global_batch, sp.seq_len,
+                                           sizes, plan.layers))
+    assert rec["per_rank_bytes"].get("cache", 0.0) == (
+        0.0 if cfg.encoder_only else cache)
+    if arch == "deepseek-moe-16b":        # one of 16 KV heads a rank
+        full = dryrun._tree_bytes(dryrun.Transformer(cfg, device="meta")
+                                  .init_cache(rows, sp.seq_len))
+        assert cache < full / 15
+    if shape == "long_500k":              # one row: slots over "data"
+        assert rows == 1
+        assert wires["by_axis"]["all-reduce/data"] > 0
+    active = analysis.active_params_per_rank(cfg, sizes)
+    assert active < analysis.active_params(cfg)
+    assert rec["roofline"]["flops_per_dev"] >= 2 * active * tokens
+
+
 def test_dryrun_all_cells_on_meta(tmp_path, capsys):
     """All 40 cells x {single, multi}: the statuses of ``all_cells``, and
     every ``run`` cell ``ok`` with per-rank bytes and the three terms;
@@ -220,6 +270,9 @@ def test_dryrun_all_cells_on_meta(tmp_path, capsys):
             assert status == ("ok" if w == "run" else w)
     for r in recs:
         if r["status"] == "ok":
+            assert "hypothetical" not in r["plan"]
+            assert r["plan"] == (dryrun.PLAN if r["shape"] == "train_4k"
+                                 else dryrun.SERVING_PLAN)
             assert r["n_devices"] == (256 if r["mesh_kind"] == "single"
                                       else 512)
             assert r["per_rank_bytes"]["total"] > 0

@@ -17,6 +17,13 @@ One module fixture spawns 4 ``gloo`` ranks on a ("data", "model")
   1e-4, ``final_norm.scale`` 2e-5, every gradient, read back from
   AdamW's first ``m`` and ``v``, atol 1e-5 / rtol 1e-4, every weight 2 x
   LR);
+* the same deepseek-moe-16b step on 2 rows of 3 tokens
+  ("deepseek-moe-16b/one-group"): 6 tokens over the reference's 2
+  dispatch groups would give each fewer than E / capacity_factor, so it
+  falls back to one global group, and the port gathers each MoE layer's
+  rows over "data" to dispatch them as one (``models/moe.py``), at the
+  same bounds; its bytes by collective and axis against the dry-run's
+  count of that fallback;
 * which weights each rank gathered along "model" (only the exceptions:
   an off-boundary KV projection, MLA's ``wq_down``, the recurrent
   cells, here hymba-1.5b's Mamba half beside its split attention) and
@@ -67,6 +74,11 @@ EXCEPTIONS = {"qwen3-8b": [], "gemma-2b": ["attn.wk", "attn.wv"],
               "minicpm3-4b": ["attn.wq_down"], "deepseek-moe-16b": [],
               "mixtral-8x22b": [],
               "hymba-1.5b": ["cell.w_bcdt", "cell.w_in", "cell.w_out"]}
+#: the steps held against JAX: each arch of ``ARCHS`` on 8 rows of 16
+#: tokens, and deepseek-moe-16b where the reference's MoE falls back to
+#: one dispatch group -> (arch, rows, seq)
+STEPS = {**{a: (a, 8, 16) for a in ARCHS},
+         "deepseek-moe-16b/one-group": ("deepseek-moe-16b", 2, 3)}
 #: the archs whose wire bytes are also taken from a step under remat "layer"
 REMAT_WIRE = ["qwen3-8b", "deepseek-moe-16b"]
 MODULES = ["attention-gqa", "attention-mqa", "mlp-swiglu", "mlp-geglu",
@@ -90,10 +102,10 @@ def jax_steps():
     JAX's ``param_specs``, the batch's rows over "data"."""
     mesh = jmake_mesh((2, 2), ("data", "model"))
     out = {}
-    for arch, kw in ARCHS.items():
-        cfg = _reduced(jregistry, arch, **kw)
+    for case, (arch, rows, seq) in STEPS.items():
+        cfg = _reduced(jregistry, arch, **ARCHS[arch])
         params = JT.init_params(jax.random.PRNGKey(0), cfg)
-        toks = _tokens(cfg)
+        toks = _tokens(cfg, rows, seq)
         step = jts.make_train_step(cfg, jadamw.AdamWConfig(lr=LR))
         psh = jax.tree.map(lambda s: NamedSharding(mesh, s),
                            jparam_specs(params, mesh))
@@ -105,7 +117,7 @@ def jax_steps():
             batch = jax.device_put({"tokens": jnp.asarray(toks)},
                                    NamedSharding(mesh, P("data")))
             p, o, m = jax.jit(step)(params_s, opt_s, batch)
-        out[arch] = dict(
+        out[case] = dict(
             params=jax.tree.map(np.asarray, params), toks=toks,
             p=named_from_reference(jax.tree.map(np.asarray, p), cfg),
             m=named_from_reference(jax.tree.map(np.asarray, o["m"]), cfg),
@@ -136,8 +148,9 @@ def _expected_model_bytes(model, names, m) -> int:
 
 
 def _step(out, arch, cfg, model, toks, mesh):
-    """One sharded step of ``model``; its full params, m, v, loss, aux,
-    the names gathered along "model" and the bytes received there."""
+    """One sharded step of ``model`` (``arch``: a key of ``STEPS`` or an
+    arch); its full params, m, v, loss, aux, the names gathered along
+    "model" and the bytes received there."""
     import torch
 
     from repro_torch.distributed import sharding
@@ -158,7 +171,7 @@ def _step(out, arch, cfg, model, toks, mesh):
     out[f"{arch}.wire"] = np.asarray(json.dumps(
         {k: v for k, v in wire.items() if k != "model_gathered"}))
     out[f"{arch}.want_bytes"] = np.asarray(_expected_model_bytes(
-        model, EXCEPTIONS[arch], mesh.size(1)))
+        model, EXCEPTIONS[arch.split("/")[0]], mesh.size(1)))
     host = sharding.full_state({"p": dict(model.named_parameters()),
                                 "m": opt["m"], "v": opt["v"]})
     for part, tree in host.items():
@@ -367,13 +380,13 @@ def _rank4(rank, store_path, out_dir, inputs):
     try:
         out = {}
         mesh = make_mesh((2, 2), ("data", "model"), device_type="cpu")
-        for arch, kw in ARCHS.items():
-            cfg = _reduced(registry, arch, **kw)
-            params_np, toks = inputs[arch]
+        for case, (arch, _, _) in STEPS.items():
+            cfg = _reduced(registry, arch, **ARCHS[arch])
+            params_np, toks = inputs[case]
             model = sharding.shard_model(
                 params_from_reference(params_np, cfg), mesh)
-            _step(out, arch, cfg, model, toks, mesh)
-            if arch in REMAT_WIRE:
+            _step(out, case, cfg, model, toks, mesh)
+            if case in REMAT_WIRE:
                 out[f"{arch}.wire.layer"] = np.asarray(_step_wire(
                     dataclasses.replace(cfg, remat="layer"), params_np,
                     toks, mesh))
@@ -428,13 +441,26 @@ def four_ranks(jax_steps, tmp_path_factory):
                          for r in range(4)])
 
 
-@pytest.mark.parametrize("arch", list(ARCHS))
+@pytest.mark.parametrize("arch", list(STEPS))
 def test_tp_step_matches_jax_gspmd(four_ranks, jax_steps, arch):
     """One TP/EP step on (2, 2) against JAX's on the same mesh (module
-    docstring's bounds)."""
+    docstring's bounds); the one-group case's bytes against the dry-run's
+    count (gathers and reduce-scatters exactly, all-reduces but the
+    scalars)."""
     want, got = jax_steps[arch], four_ranks
     assert abs(float(got[f"{arch}.loss"]) - want["loss"]) < 1e-4
-    if ARCHS[arch] or arch == "deepseek-moe-16b":
+    name, rows, seq = STEPS[arch]
+    if arch.endswith("/one-group"):
+        cfg = _reduced(registry, name)
+        plan = analysis.plan_collective_bytes(
+            cfg, {"data": 2, "model": 2}, "train",
+            tokens=rows // 2 * seq)["by_axis"]
+        wire = json.loads(str(got[f"{arch}.wire"]))
+        assert set(wire) == set(plan) and "reduce-scatter/data" in plan
+        for key, n in plan.items():
+            tol = 256 if key.startswith("all-reduce") else 0
+            assert abs(wire[key] - n) <= tol, (key, wire[key], n)
+    if ARCHS[name] or name == "deepseek-moe-16b":
         assert want["aux"] > 0
         assert abs(float(got[f"{arch}.aux"]) - want["aux"]) < 1e-5
     np.testing.assert_allclose(got[f"{arch}.p.final_norm.scale"],
