@@ -130,12 +130,18 @@ network)::
    compute stays on the card.  12a: gemma-2b at full width, depth cut to
    4 of 18 layers; 12b: deepseek-moe-16b at full width, depth cut to 3 of
    28 (1 dense + 2 MoE); both bf16, remat "layer", 2 steps of 4 x 1,024
-   random tokens: losses finite and equal on both ranks; prints each
+   random tokens; 12d: xlstm-1.3b cut to 8 of 48 layers (7 mLSTMs split
+   by heads, an sLSTM by channels) and hymba-1.5b cut to 4 of 32 (its
+   Mamba cells split by channels; its 25 heads do not divide 2), the same
+   but 4 x 64 tokens: losses finite and equal on both ranks; prints each
    rank's step times, peak device memory, parameters held, and the bytes
-   it moved by collective and axis (``sharding.wire_counts``; gathered
-   along "model" only gemma's one KV head), beside the card's name and
-   power limit (two ranks share the card's SMs: the times are recorded,
-   not compared as a speed).  12c: both archs at 2 layers in fp32 (TF32
+   it moved by collective and axis (``sharding.wire_counts``), which
+   must match the plan's count, and the weights gathered along "model",
+   which must be the plan's exceptions (gemma's one KV head, hymba's
+   ``w_in`` and attention), beside the card's name and power limit (two
+   ranks share the card's SMs: the times are recorded, not compared as a
+   speed).  12c: each arch at 2 layers (xlstm-1.3b's an mLSTM and an
+   sLSTM) in fp32 (TF32
    off), one step of 2 x 256 tokens split over the two ranks against the
    one-rank replicated step that each rank runs beside on the same
    weights and batch: the loss within 1e-4, every gradient (from AdamW's
@@ -149,13 +155,18 @@ network)::
    rank's launch counts must be 0.  13a: qwen3-8b at full width and depth
    (bf16; the ranks build their shards in turn, so the card never holds
    two full copies); 13b: deepseek-moe-16b at full width, depth cut to 3
-   of 28 (expert-parallel, 32 of 64 experts a rank); each a prefill of 4
-   x 256 random tokens and 32 greedy steps: tokens equal on both ranks,
-   the last logits (4, 1, V) whole on each; prints the prefill ms, the
-   decode step p50/p99, each rank's peak memory and parameters held, and
-   the bytes it moved by collective and axis in the prefill and a decode
-   step, which must equal ``analysis.plan_collective_bytes`` (nothing
-   gathered along "model").  13c (fp32, TF32 off; ``SERVE_EXACT``): each
+   of 28 (expert-parallel, 32 of 64 experts a rank); 13d: xlstm-1.3b and
+   hymba-1.5b at full width and depth, their recurrent states split over
+   the ranks; each a prefill of 4 x 256 random tokens and 32 greedy
+   steps (hymba 8: each of its steps gathers 524 MB along "model"
+   through host copies): tokens equal on both ranks, the last logits (4,
+   1, V) whole on
+   each; prints the prefill ms, the decode step p50/p99, each rank's peak
+   memory and parameters held, and the bytes it moved by collective and
+   axis in the prefill and a decode step, which must equal
+   ``analysis.plan_collective_bytes`` (gathered along "model" only the
+   plan's exceptions: hymba's ``w_in`` and attention).  13c (fp32, TF32
+   off; ``SERVE_EXACT``): each
    rank runs the one-rank steps beside on the same weights; the greedy
    tokens must be equal, the last logits within 1e-4 and the MoE's routed
    and dropped slots equal: qwen3-8b at 2 layers on (1, 2); deepseek-
@@ -163,7 +174,9 @@ network)::
    4 rows, where the reference's dispatch falls back to one group (the
    rows gathered over data); hymba-1.5b at 2 layers on (2, 1), one row,
    16 steps from an empty cache of 24 slots split over data, 12 a rank,
-   so that both ranks write slots and add to the softmax merge.
+   so that both ranks write slots and add to the softmax merge; xlstm-
+   1.3b (an mLSTM and an sLSTM) and hymba-1.5b at 2 layers on (1, 2),
+   their states split over "model".
 6. Durable open-loop ingest with a crash and a restart: ``torch-nbtree``
    at phase 2's shape under ``repro_torch.ingest.IngestFrontend`` with a
    WAL and LSN-keyed snapshots on local disk; a preload of 2^22 keys over
@@ -202,8 +215,8 @@ network)::
    (>= 2^18 pairs) out without a capped range scan.
 
 Kernel launch counters are zeroed just before each path (2-3, 4, the
-measured runs of 8a and 8b, 9a, 10a, 11a, 12a-12b, 13a-13b, 6, 7) and read just
-after; every kernel
+measured runs of 8a and 8b, 9a, 10a, 11a, 12a-12b and 12d, 13a-13b and
+13d, 6, 7) and read just after; every kernel
 must have launched on its own path (the four NB-tree kernels of the write
 side and the point reads on phase 6's too, and those and
 ``range_scan_rows`` on phase 7's; the root merge, the search, the probe
@@ -2993,14 +3006,23 @@ def phase_sharded(dev, args, nbtree_stats, cfg=None) -> dict:
 
 
 # ----------------------------------------------------------------- phase 12
-#: 12a-12b: two ranks on one card over a gloo group, mesh (data, model) =
-#: (1, 2); each arch at full width with its depth cut (bf16, remat
-#: "layer"), 2 steps of 4 x 1,024 random tokens at a constant rate
+#: 12a-12b, 12d: two ranks on one card over a gloo group, mesh (data,
+#: model) = (1, 2); each arch at full width with its depth cut (bf16,
+#: remat "layer"), 2 steps of 4 x 1,024 random tokens at a constant rate,
+#: 12d's recurrent archs (their cells split over "model") of 4 x ``seqs``
+#: (64: xlstm-1.3b's Python loop over time took 10.3-14.3 s a step at 256
+#: tokens, PERF.md §6)
 TP = dict(ranks=2, batch=4, seq=1024, steps=2, lr=3e-4,
-          depth={"gemma-2b": 4, "deepseek-moe-16b": 3})
-#: 12c: the same archs at 2 layers in fp32 (TF32 off), one step of 2 x 256
-#: tokens, split over the 2 ranks against the one-rank replicated step
+          depth={"gemma-2b": 4, "deepseek-moe-16b": 3, "xlstm-1.3b": 8,
+                 "hymba-1.5b": 4},
+          seqs={"xlstm-1.3b": 64, "hymba-1.5b": 64})
+#: 12c: the same archs at 2 layers (``every_kind``: xlstm-1.3b's an mLSTM
+#: and an sLSTM) in fp32 (TF32 off), one step of 2 x 256 tokens, split
+#: over the 2 ranks against the one-rank replicated step
 TP_EXACT = dict(depth=2, batch=2, seq=256, lr=1e-3)
+#: the tag each arch of phase 12 and 13 is logged under
+TP_TAGS = {"gemma-2b": "a", "deepseek-moe-16b": "b", "qwen3-8b": "a",
+           "xlstm-1.3b": "d", "hymba-1.5b": "d"}
 #: 12c's bounds, fixed before the first run: the loss within 1e-4 and
 #: every gradient (read back from AdamW's first m and v) within 10c's
 #: ``GRAD_ATOL``, the reference's own bound between two runs of a step;
@@ -3011,6 +3033,33 @@ TP_LOSS_ATOL = 1e-4
 #: dry-run's count of them: the scalars (loss, aux, norm, the MoE
 #: fractions) and the loss's last position of each row, uncounted
 TP_PLAN_SLACK = 256
+
+
+def every_kind(cfg, depth: int):
+    """``cfg`` cut to ``depth`` layers that hold each of its block kinds
+    (at most ``depth``): one layer of each, in the order they first
+    appear, the last kind taking the layers left (xlstm-1.3b at 2: an
+    mLSTM and an sLSTM, where :func:`cut_depth` keeps two mLSTMs; the
+    other archs as :func:`cut_depth`)."""
+    kinds = list(dict.fromkeys(k for k, _ in cfg.segments))[:depth]
+    counts = [1] * len(kinds)
+    counts[-1] += depth - len(kinds)
+    return dataclasses.replace(cfg, n_layers=depth,
+                               segments=tuple(zip(kinds, counts)))
+
+
+def plan_exceptions(cfg, sizes: dict) -> list:
+    """The weights (names within a block, sorted) that the plan of ``cfg``
+    on a mesh of ``sizes`` gathers along "model": sharded there, fetched
+    "full" or "partial" (``analysis.step_plan``)."""
+    from repro_torch.distributed.sharding import param_specs
+    from repro_torch.roofline import analysis
+
+    shapes = {n: s for n, (s, _) in analysis.param_shapes(cfg).items()}
+    specs = param_specs(shapes, sizes)
+    return sorted({n.split(".", 2)[2] for n, mode in analysis.step_plan(
+        cfg, sizes).modes.items() if n.startswith("layers.")
+        and mode != "local" and "model" in specs[n]})
 
 
 def tp_batch(cfg, rows: int, seq: int, seed: int, dev):
@@ -3061,7 +3110,8 @@ def tp_rank(rank, port, out, seed, dev_type, runs, exact, shapes) -> None:
             opt = adamw.init(dict(model.named_parameters()))
             step = make_train_step(cfg, adamw.AdamWConfig(
                 lr=schedules.constant(TP["lr"])), mesh=mesh)
-            batch = tp_batch(cfg, TP["batch"], TP["seq"], seed, dev)
+            batch = tp_batch(cfg, TP["batch"],
+                             TP["seqs"].get(cfg.name, TP["seq"]), seed, dev)
             secs, losses = [], []
             for _ in range(TP["steps"]):
                 torch.cuda.synchronize()
@@ -3079,7 +3129,7 @@ def tp_rank(rank, port, out, seed, dev_type, runs, exact, shapes) -> None:
                 params=param_count(model))
             del model, opt, step, m
         res["launches"] = ops.launch_counts()
-        res["times"] = {"12a-12b": time.perf_counter() - t_up}
+        res["times"] = {"12a-12b, 12d": time.perf_counter() - t_up}
         for cfg in exact:
             gc.collect()
             torch.cuda.empty_cache()
@@ -3118,7 +3168,7 @@ def tp_rank(rank, port, out, seed, dev_type, runs, exact, shapes) -> None:
             res["exact"][cfg.name] = dict(loss=loss, rep_loss=rep_loss, **diff)
             del model, opt, rep, rep_opt
         res["times"]["12c"] = time.perf_counter() - t_up - res["times"][
-            "12a-12b"]
+            "12a-12b, 12d"]
         if rank == 0:
             Path(out).write_text(json.dumps(res))
         else:
@@ -3160,8 +3210,8 @@ def phase_tp(dev, args, cfgs=None) -> None:
     if cfgs is None:
         runs = [cut_depth(registry.get_config(a), d)
                 for a, d in TP["depth"].items()]
-        exact = [dataclasses.replace(cut_depth(registry.get_config(a),
-                                               TP_EXACT["depth"]),
+        exact = [dataclasses.replace(every_kind(registry.get_config(a),
+                                                TP_EXACT["depth"]),
                                      dtype="float32")
                  for a in TP["depth"]]
     else:
@@ -3181,14 +3231,17 @@ def phase_tp(dev, args, cfgs=None) -> None:
                      (TP, TP_EXACT)), timeout=600)
         res = json.loads(out.read_text())
         res1 = json.loads(out.with_suffix(".rank1").read_text())
+    sizes = {"data": 1, "model": TP["ranks"]}
     for cfg in runs:
         r, r1 = res["runs"][cfg.name], res1["runs"][cfg.name]
-        tokens = TP["batch"] * TP["seq"]
-        log(f"  12{'ab'[runs.index(cfg)]}: {cfg.name} at full width, "
+        seq = TP["seqs"].get(cfg.name, TP["seq"])
+        tokens = TP["batch"] * seq
+        tag = "12" + TP_TAGS.get(cfg.name, "")
+        log(f"  {tag}: {cfg.name} at full width, "
             f"{cfg.n_layers} layers {cfg.segments} ({cfg.dtype}, remat "
             f"{cfg.remat}), {r['params']} parameters, {r['local_params']} "
             f"and {r1['local_params']} held by ranks 0 and 1; "
-            f"{TP['steps']} steps of {TP['batch']} x {TP['seq']} tokens: "
+            f"{TP['steps']} steps of {TP['batch']} x {seq} tokens: "
             f"losses {r['losses']}, grad norm {r['grad_norm']:.6f}; step s "
             f"rank 0 {[round(x, 6) for x in r['secs']]}, rank 1 "
             f"{[round(x, 6) for x in r1['secs']]} ({tokens} tokens a step; "
@@ -3204,24 +3257,34 @@ def phase_tp(dev, args, cfgs=None) -> None:
             raise AssertionError("12: a gather along data on a data "
                                  "axis of one rank")
         # the dry-run's count of this step (remat "layer": the recompute's
-        # all-reduces included) against the bytes the ranks moved
+        # all-reduces included) against the bytes each rank moved, and
+        # the weights it gathered along model against the plan's
         plan = {k: v for k, v in analysis.plan_collective_bytes(
-            cfg, {"data": 1, "model": TP["ranks"]}, "train",
-            tokens=tokens)["by_axis"].items() if k.endswith("/model")}
-        got = {k: r["wire"][k] for k in r["wire"] if k.endswith("/model")}
-        log(f"  12{'ab'[runs.index(cfg)]}: the dry-run's plan of this step "
-            f"along model (analysis.plan_collective_bytes): {plan}; rank 0 "
-            f"moved {got} (the plan leaves out the scalars and the loss's "
-            f"last position of each row: bound {TP_PLAN_SLACK} B)")
-        if set(plan) != set(got) or any(
-                abs(got[k] - v) > (TP_PLAN_SLACK if k.startswith(
-                    "all-reduce") else 0) for k, v in plan.items()):
-            raise AssertionError(f"12 {cfg.name}: the plan's count {plan} "
-                                 f"is not the step's {got}")
+            cfg, sizes, "train", tokens=tokens,
+            seq=seq)["by_axis"].items() if k.endswith("/model")}
+        want = plan_exceptions(cfg, sizes)
+        log(f"  {tag}: the dry-run's plan of this step along model "
+            f"(analysis.plan_collective_bytes): {plan}; moved by rank 0 "
+            f"{ {k: r['wire'].get(k) for k in plan} }, by rank 1 "
+            f"{ {k: r1['wire'].get(k) for k in plan} } (the plan leaves out "
+            f"the scalars and the loss's last position of each row: bound "
+            f"{TP_PLAN_SLACK} B); gathered along model {want}, the plan's "
+            "exceptions")
+        for x in (r, r1):
+            got = {k: x["wire"][k] for k in x["wire"] if k.endswith("/model")}
+            if set(plan) != set(got) or any(
+                    abs(got[k] - v) > (TP_PLAN_SLACK if k.startswith(
+                        "all-reduce") else 0) for k, v in plan.items()):
+                raise AssertionError(f"12 {cfg.name}: the plan's count "
+                                     f"{plan} is not the step's {got}")
+            if x["wire"]["model_gathered"] != want:
+                raise AssertionError(
+                    f"12 {cfg.name}: gathered along model "
+                    f"{x['wire']['model_gathered']}, the plan names {want}")
     for launches in (res["launches"], res1["launches"]):
         if any(launches.values()):
             raise AssertionError(f"12 launched a kernel: {launches}")
-    log("  12a-12b launched none of the six kernels: "
+    log("  12a-12b, 12d launched none of the six kernels: "
         + json.dumps(res["launches"]))
     for cfg in exact:
         e = {k: max(res["exact"][cfg.name][k], res1["exact"][cfg.name][k])
@@ -3250,11 +3313,16 @@ def phase_tp(dev, args, cfgs=None) -> None:
 
 
 # ----------------------------------------------------------------- phase 13
-#: 13a-13b: two ranks on the card, mesh (data, model) = (1, 2), bf16, a
-#: prefill of ``batch`` x ``prompt`` tokens then ``steps`` greedy steps;
-#: ``depth``: the layers each arch keeps (None: all)
+#: 13a-13b, 13d: two ranks on the card, mesh (data, model) = (1, 2),
+#: bf16, a prefill of ``batch`` x ``prompt`` tokens then ``steps`` greedy
+#: steps (``arch_steps`` where an arch takes fewer: each hymba-1.5b step
+#: gathers 524 MB of its weights along "model" through host copies, ~2 s
+#: on two ranks of one card, PERF.md §6); ``depth``: the layers each arch
+#: keeps (None: all)
 SERVE_TP = dict(ranks=2, batch=4, prompt=256, steps=32,
-                depth={"qwen3-8b": None, "deepseek-moe-16b": 3})
+                arch_steps={"hymba-1.5b": 8},
+                depth={"qwen3-8b": None, "deepseek-moe-16b": 3,
+                       "xlstm-1.3b": None, "hymba-1.5b": None})
 #: 13c, fp32 with TF32 off, each against the one-rank steps each rank runs
 #: beside: (arch, mesh (data, model), rows, prompt (0: decode from an
 #: empty cache), decode steps, cache length).  deepseek-moe-16b on (1, 2)
@@ -3264,11 +3332,16 @@ SERVE_TP = dict(ranks=2, batch=4, prompt=256, steps=32,
 #: the reference's do (2 steps: each gathers every fp32 weight over data
 #: through host copies); hymba-1.5b's one row splits its 24 slots over
 #: data, 12 a rank, so positions 0-11 land in rank 0's run and 12-16 in
-#: rank 1's, and both add to the softmax merge from step 13 on
+#: rank 1's, and both add to the softmax merge from step 13 on; on (1, 2)
+#: xlstm-1.3b (an mLSTM split by heads, an sLSTM by channels) and
+#: hymba-1.5b (its Mamba by channels) carry split states through the
+#: prefill and 8 steps
 SERVE_EXACT = [("qwen3-8b", (1, 2), 4, 64, 8, 96),
                ("deepseek-moe-16b", (1, 2), 4, 64, 8, 96),
                ("deepseek-moe-16b", (2, 1), 4, 16, 2, 48),
-               ("hymba-1.5b", (2, 1), 1, 0, 16, 24)]
+               ("hymba-1.5b", (2, 1), 1, 0, 16, 24),
+               ("xlstm-1.3b", (1, 2), 4, 64, 8, 96),
+               ("hymba-1.5b", (1, 2), 4, 64, 8, 96)]
 SERVE_EXACT_DEPTH = 2
 #: 13c's bound on the last logits, fixed before the first run
 SERVE_LOGIT_ATOL = 1e-4
@@ -3282,8 +3355,8 @@ def serve_tp_cfgs():
     for arch, depth in SERVE_TP["depth"].items():
         cfg = registry.get_config(arch)
         runs.append(cfg if depth is None else cut_depth(cfg, depth))
-    exact = [dataclasses.replace(cut_depth(registry.get_config(e[0]),
-                                           SERVE_EXACT_DEPTH),
+    exact = [dataclasses.replace(every_kind(registry.get_config(e[0]),
+                                            SERVE_EXACT_DEPTH),
                                  dtype="float32") for e in SERVE_EXACT]
     return runs, exact
 
@@ -3342,9 +3415,10 @@ def serve_tp_rank(rank, port, out, seed, dev_type, runs, exact,
         res = {"runs": {}, "exact": []}
         t_up = time.perf_counter()
         mesh = make_mesh((1, world), ("data", "model"), dev_type)
-        B, P, n = SERVE_TP["batch"], SERVE_TP["prompt"], SERVE_TP["steps"]
+        B, P = SERVE_TP["batch"], SERVE_TP["prompt"]
         ops.reset_launch_counts()
         for cfg in runs:
+            n = SERVE_TP["arch_steps"].get(cfg.name, SERVE_TP["steps"])
             gc.collect()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -3378,7 +3452,7 @@ def serve_tp_rank(rank, port, out, seed, dev_type, runs, exact,
                 params=param_count(model))
             del model, cache, logits
         res["launches"] = ops.launch_counts()
-        res["times"] = {"13a-13b": time.perf_counter() - t_up}
+        res["times"] = {"13a-13b, 13d": time.perf_counter() - t_up}
         for cfg, (_, dims, rows, prompt, n_dec, L) in zip(exact,
                                                           SERVE_EXACT):
             gc.collect()
@@ -3423,7 +3497,7 @@ def serve_tp_rank(rank, port, out, seed, dev_type, runs, exact,
             res["exact"].append(r)
             del sh, one, cache
         res["times"]["13c"] = time.perf_counter() - t_up - res["times"][
-            "13a-13b"]
+            "13a-13b, 13d"]
         path = Path(out) if rank == 0 else Path(out).with_suffix(".rank1")
         path.write_text(json.dumps(res))
     finally:
@@ -3453,11 +3527,13 @@ def phase_serve_tp(dev, args, cfgs=None) -> None:
                      (SERVE_TP, SERVE_EXACT)), timeout=600)
         res = json.loads(out.read_text())
         res1 = json.loads(out.with_suffix(".rank1").read_text())
-    B, P, n = SERVE_TP["batch"], SERVE_TP["prompt"], SERVE_TP["steps"]
+    B, P = SERVE_TP["batch"], SERVE_TP["prompt"]
     sizes = {"data": 1, "model": world}
     for cfg in runs:
+        n = SERVE_TP["arch_steps"].get(cfg.name, SERVE_TP["steps"])
         r, r1 = res["runs"][cfg.name], res1["runs"][cfg.name]
-        tag = f"13{'ab'[runs.index(cfg)]}"
+        tag = "13" + TP_TAGS.get(cfg.name, "")
+        want = plan_exceptions(cfg, sizes)
         p50 = [pct(x["secs"], 50) * 1e3 for x in (r, r1)]
         p99 = [pct(x["secs"], 99) * 1e3 for x in (r, r1)]
         plans = {k: {a: v for a, v in analysis.plan_collective_bytes(
@@ -3478,8 +3554,8 @@ def phase_serve_tp(dev, args, cfgs=None) -> None:
             f"B; bytes moved by rank 0, prefill {r['wire_prefill']}, a "
             f"decode step {r['wire_decode']}; the plan's count "
             f"(analysis.plan_collective_bytes): prefill {plans['prefill']}, "
-            f"decode {plans['decode']}; first tokens {r['tokens'][1]}; "
-            f"[{smi}]")
+            f"decode {plans['decode']}; gathered along model {want}, the "
+            f"plan's exceptions; first tokens {r['tokens'][1]}; [{smi}]")
         if not r["finite"] or r["tokens"] != r1["tokens"]:
             raise AssertionError(f"{tag} {cfg.name}: tokens differ between "
                                  "the ranks or the logits are not finite")
@@ -3489,14 +3565,15 @@ def phase_serve_tp(dev, args, cfgs=None) -> None:
             for x in (r, r1):
                 got = {a: v for a, v in x[f"wire_{k}"].items()
                        if a != "model_gathered"}
-                if got != plans[k] or x[f"wire_{k}"]["model_gathered"]:
+                if got != plans[k] or x[f"wire_{k}"]["model_gathered"] != \
+                        want:
                     raise AssertionError(
                         f"{tag} {cfg.name} {k}: moved {x[f'wire_{k}']}, "
                         f"the plan counts {plans[k]}")
     for launches in (res["launches"], res1["launches"]):
         if any(launches.values()):
             raise AssertionError(f"13 launched a kernel: {launches}")
-    log("  13a-13b launched none of the six kernels: "
+    log("  13a-13b, 13d launched none of the six kernels: "
         + json.dumps(res["launches"]))
     for i, (cfg, (_, dims, rows, prompt, n_dec, L)) in enumerate(
             zip(exact, SERVE_EXACT)):
@@ -4128,16 +4205,18 @@ def main() -> int:
     paths["sharded"] = phase_sharded(dev, args, nbtree_stats)
     log(f"phase 11 took {time.perf_counter() - t11:.1f} s")
     log("phase 12: the sharded step split over model (tensor and expert "
-        "parallelism), two ranks on the card: gemma-2b and "
-        "deepseek-moe-16b at full width, depth cut; fp32 vs the "
+        "parallelism, the recurrent cells by head, value column or "
+        "channel), two ranks on the card: gemma-2b, deepseek-moe-16b, "
+        "xlstm-1.3b and hymba-1.5b at full width, depth cut; fp32 vs the "
         "replicated step")
     gc.collect()
     torch.cuda.empty_cache()
     phase_tp(dev, args)
-    log("phase 13: sharded serving, two ranks on the card: qwen3-8b at "
-        "full width and depth and deepseek-moe-16b at 3 layers through "
-        "the prefill and greedy steps of serve/steps.py over (data, model) "
-        "= (1, 2); fp32 vs the one-rank steps")
+    log("phase 13: sharded serving, two ranks on the card: qwen3-8b, "
+        "xlstm-1.3b and hymba-1.5b at full width and depth and "
+        "deepseek-moe-16b at 3 layers through the prefill and greedy steps "
+        "of serve/steps.py over (data, model) = (1, 2); fp32 vs the "
+        "one-rank steps")
     gc.collect()
     torch.cuda.empty_cache()
     phase_serve_tp(dev, args)

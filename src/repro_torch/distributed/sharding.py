@@ -33,18 +33,27 @@ work on them:
   over ``"data"`` only, so the rank keeps its ``"model"`` slice (whole
   heads, experts, hidden units or vocab rows) and computes on it;
   ``"full"``, gathered to full for compute every rank of the axis
-  repeats (norms, the router, the recurrent cells); ``"partial"``,
-  gathered to full for use inside a split region only, where each rank
-  adds its share of the gradient (the KV projections when the KV heads
-  do not divide over ``"model"``, MLA's ``wq_down`` whose cut splits the
-  latent its norm spans, the norms applied per head);
+  repeats (norms, the router, a cell whose cuts keep no whole unit);
+  ``"partial"``, gathered to full for use inside a split region only,
+  where each rank adds its share of the gradient (the KV projections
+  when the KV heads do not divide over ``"model"``, MLA's ``wq_down``
+  whose cut splits the latent its norm spans, the norms applied per
+  head, a split Mamba's ``w_in`` and the replicated leaves each rank
+  slices to its channels, an mLSTM's ``wq``/``wk`` sliced to the head of
+  the value columns it holds);
 * a split region (one of the regions ``model_plan`` names, which the
   block hands its layer functions) starts with :func:`copy_to_model`
   (identity, its gradient summed over ``"model"``) and ends with
   :func:`reduce_from_model` (summed over ``"model"``, identity
   backward): attention's heads with the row-parallel ``wo``, the MLP's
   hidden units, the MoE's experts (or their hidden units where the
-  experts do not divide), the vocab of the embedding and of the logits;
+  experts do not divide), the vocab of the embedding and of the logits,
+  a recurrent cell's heads, value columns or channels (``models/
+  ssm.py``); a sum inside a split region that feeds each rank's own
+  compute (a split cell's norm's sum of squares, a Mamba's B, C and dt)
+  is :func:`sum_model`, summed in the backward as well, and a split
+  sLSTM gathers its ``h`` each step with :func:`gather_model`, whose
+  gradient is reduce-scattered back;
   the vocab-parallel loss (``models/transformer.py::
   vocab_parallel_cross_entropy``) all-reduces the max
   (:func:`all_reduce_max`, no gradient), the sum of exps and the gold
@@ -460,6 +469,30 @@ def reduce_from_model(x):
     return x if g is None else _ReduceFromModel.apply(x, g[0])
 
 
+class _SumModel(torch.autograd.Function):
+    """Summed over ``"model"`` in the forward and in the backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x.contiguous().clone(), group, "model")
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.group, "model"), None
+
+
+def sum_model(x):
+    """Partial sums ``x`` summed over ``"model"`` where the sum feeds
+    compute that each rank of a split region runs on its own share (a
+    split cell's B, C and dt, its norm's sum of squares): the gradient,
+    each rank's share of it, is summed over the axis as well, unlike
+    :func:`reduce_from_model`'s; ``x`` itself without a ``"model"``
+    axis."""
+    g = _axis_group("model")
+    return x if g is None else _SumModel.apply(x, g[0])
+
+
 def all_reduce_max(x, axis: str = "model"):
     """The elementwise max of ``x`` over ``axis``, detached (the loss's
     shift, a split softmax's: they carry no gradient)."""
@@ -696,52 +729,103 @@ class RankCache(list):
     (:func:`row_axes`); ``kv_split``, the layers whose KV heads are split
     over ``"model"`` (the others hold every KV head on every rank of the
     axis); ``slots``, the layers whose slots are split over ``"data"``
-    (:func:`slots_split`)."""
+    (:func:`slots_split`); ``cells``, ``{layer: region}`` of the layers
+    whose recurrent state is split over ``"model"``, by the cell's region
+    (``models/transformer.py::REGIONS``): ``"cell"``, an mLSTM's heads
+    (dim 1 of C, n and m) or an sLSTM's or a Mamba's channels (dim 1 of
+    each (B, d) state and of s, dim 2 of the conv tail), or
+    ``"cell_values"``, an mLSTM's value columns of one head (dim 3 of C;
+    n and m that head's, alike on the ranks that share it)."""
 
     def __init__(self, entries, rows=(), kv_split=frozenset(),
-                 slots=frozenset()):
+                 slots=frozenset(), cells=None):
         super().__init__(entries)
         self.rows = tuple(rows)
         self.kv_split = frozenset(kv_split)
         self.slots = frozenset(slots)
+        self.cells = dict(cells or {})
 
 
-def _gather_entry(e, heads: bool, slots: bool, rows: list):
+def _gather_state(state: tuple, cell, rows: list) -> tuple:
+    """A recurrent state's rows and, where ``cell`` (its region in
+    :class:`RankCache`'s ``cells``) split it over ``"model"``, its pieces
+    there, gathered into the whole state."""
+    state = [_gather_rows(t, rows) for t in state]
+    if cell is None:
+        return tuple(state)
+    group = _axis_group("model")[0]
+    if len(state) == 2:                            # Mamba: s, conv tail
+        return (_all_gather(state[0], 1, group, "model"),
+                _all_gather(state[1], 2, group, "model"))
+    if cell == "cell":                             # heads, channels
+        return tuple(_all_gather(t, 1, group, "model") for t in state)
+    C, n, m = state                                # value columns
+    C = _all_gather(C, 3, group, "model")          # (B, 1, dk, H * dk)
+    B, _, dk, width = C.shape
+    H = width // dk
+    k = mesh_axis_size("model") // H               # ranks a head
+    C = C.reshape(B, dk, H, dk).transpose(1, 2).contiguous()
+    n = _all_gather(n, 1, group, "model")[:, ::k].contiguous()
+    m = _all_gather(m, 1, group, "model")[:, ::k].contiguous()
+    return C, n, m
+
+
+def _gather_entry(e, heads: bool, slots: bool, rows: list, cell=None):
     if isinstance(e, tuple):
-        return tuple(_gather_entry(t, heads, slots, rows) for t in e)
+        return _gather_state(e, cell, rows)
     if isinstance(e, dict) and "kv" in e:              # a hybrid layer
         return {"kv": _gather_entry(e["kv"], heads, slots, rows),
-                "ssm": _gather_entry(e["ssm"], False, False, rows)}
-    if isinstance(e, dict):
-        out = {}
-        for k, t in e.items():
-            t = _gather_rows(t, rows)
-            if slots:
-                g = _axis_group("data")
-                t = _all_gather(t, 1, g[0], "data")
-            if heads and k in KV_HEAD_KEYS:
-                g = _axis_group("model")
-                t = _all_gather(t, 2, g[0], "model")
-            out[k] = t
-        return out
-    return _gather_rows(e, rows)
+                "ssm": _gather_state(e["ssm"], cell, rows)}
+    out = {}
+    for k, t in e.items():
+        t = _gather_rows(t, rows)
+        if slots:
+            g = _axis_group("data")
+            t = _all_gather(t, 1, g[0], "data")
+        if heads and k in KV_HEAD_KEYS:
+            g = _axis_group("model")
+            t = _all_gather(t, 2, g[0], "model")
+        out[k] = t
+    return out
 
 
 def gather_cache(cache: RankCache) -> list:
     """The global decode cache (a plain list, the unsharded model's
-    layout) from every rank's :class:`RankCache`: rows, KV heads and slots
-    gathered where the layout split them; every rank of the mesh must
-    call it, inside the model's ``mesh_scope``."""
+    layout) from every rank's :class:`RankCache`: rows, KV heads, slots
+    and split recurrent states gathered where the layout split them;
+    every rank of the mesh must call it, inside the model's
+    ``mesh_scope``."""
     rows = [g for g in map(_axis_group, cache.rows) if g is not None]
-    return [_gather_entry(e, i in cache.kv_split, i in cache.slots, rows)
+    return [_gather_entry(e, i in cache.kv_split, i in cache.slots, rows,
+                          cache.cells.get(i))
             for i, e in enumerate(cache)]
+
+
+class _GatherModel(torch.autograd.Function):
+    """Every rank's piece along ``"model"``; the gradient, each rank's
+    share of it, summed back to the rank's own piece (a reduce-scatter,
+    in fp32)."""
+
+    @staticmethod
+    def forward(ctx, t, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return _all_gather(t, dim, group, "model")
+
+    @staticmethod
+    def backward(ctx, g):
+        wide = g if g.dtype == torch.float64 else g.float()
+        out = _reduce_scatter(wide, ctx.dim, ctx.group, "model")
+        return out.to(g.dtype).contiguous(), None, None
 
 
 def gather_model(t, dim: int = -1):
     """``t``'s pieces along ``"model"`` (dim ``dim``) gathered in rank
-    order: a split vocab's columns."""
+    order, differentiable (:class:`_GatherModel`): a split vocab's
+    columns, a split sLSTM's ``h`` before its recurrent product."""
     g = _axis_group("model")
-    return t if g is None else _all_gather(t, dim, g[0], "model")
+    if g is None:
+        return t
+    return _GatherModel.apply(t, dim % t.dim(), g[0])
 
 
 def vocab_argmax(logits, split: bool):

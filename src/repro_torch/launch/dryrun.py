@@ -19,12 +19,13 @@ sizes (16 x 16 and 2 x 16 x 16; ``launch/mesh.py::production_shape``):
   data where they divide, else over data, else every row, as the
   reference's ``batch_specs``: ``sharding.row_axes``); a serving cache is
   the rank's piece that ``Transformer.rank_cache`` lays out (its rows,
-  its KV heads where the plan splits them over ``"model"``, for one row
-  its slots over ``"data"``);
+  its KV heads and its share of each recurrent state where the plan
+  splits them over ``"model"``, for one row its slots over ``"data"``);
 * ``activation_estimate`` adds what one step keeps live besides: under
   ``remat == "layer"`` each layer's input, one layer's working set (its
   attention scores, projections and MLP hidden, the recurrences' per-step
-  states that autograd keeps; the split parts 1/m of it), the logits
+  states that autograd keeps; the split parts, split cells' states
+  among them, 1/m of it), the logits
   with their fp32 copy and gradient (1/m where the vocab is split), and
   the fetched weights of one layer and of the embeddings (a split
   weight's 1/m).  It is an estimate, labelled so;
@@ -74,21 +75,25 @@ PLAN = ("port: parameters, AdamW m and v and gradients placed by "
         "distributed/sharding.py::param_specs; batch rows over pod x data; "
         "each layer's weights gathered over data, and over model only "
         "where the plan cannot split there (off-boundary KV heads, MLA's "
-        "wq_down, the recurrent cells); attention heads, MLP hidden units, "
-        "MoE experts (or their hidden units) and the vocab split over "
-        "model, with activation all-reduces there; bytes and FLOPs counted "
-        "from this plan, not from HLO")
+        "wq_down, a split Mamba's w_in, an mLSTM's wq and wk split by value "
+        "columns); attention heads, MLP hidden units, MoE experts (or their "
+        "hidden units), the recurrent cells (mLSTM heads or value columns, "
+        "sLSTM and Mamba channels) and the vocab split over model, with "
+        "activation all-reduces there; bytes and FLOPs counted from this "
+        "plan, not from HLO")
 #: the prefill, decode and long-context cells' plan: ``serve/steps.py`` on
 #: a sharded model (``analysis.step_plan``)
 SERVING_PLAN = (
     "port: serve/steps.py on a model placed by distributed/sharding.py::"
     "param_specs; rows over pod x data where they divide, else data, else "
     "every row; each layer's weights gathered over data, and over model "
-    "only the plan's exceptions (off-boundary KV heads, MLA's wq_down, the "
-    "recurrent cells); attention heads, MLP hidden units, MoE experts (or "
-    "their hidden units) and the vocab split over model as in training, "
-    "with activation all-reduces there; the cache's KV heads split over "
-    "model where the plan splits them, one row's slots over data with a "
+    "only the plan's exceptions (off-boundary KV heads, MLA's wq_down, a "
+    "split Mamba's w_in, an mLSTM's wq and wk split by value columns); "
+    "attention heads, MLP hidden units, MoE experts (or their hidden "
+    "units), the recurrent cells and the vocab split over model as in "
+    "training, with activation all-reduces there; the cache's KV heads and "
+    "recurrent states split over model where the plan splits them, one "
+    "row's slots over data with a "
     "log-sum-exp merge; the logits' vocab and rows gathered at the end; "
     "bytes and FLOPs counted from this plan, not from HLO")
 
@@ -191,13 +196,16 @@ def _layer_working_bytes(cfg, kind, shape, rows: int, item: int,
     elif kind in ("mlstm", "slstm"):
         dk = d // cfg.n_heads
         per_step = (cfg.n_heads * dk * dk if kind == "mlstm" else 8 * d) * 4
-        out += rows * per_step * (S if grad else 1)  # autograd keeps each step
+        # autograd keeps each step's state: the rank's heads, value
+        # columns or channels of it where the cell is split
+        out += rows * per_step * (S if grad else 1) * part(
+            "cell", "cell_values")
     elif kind in ATTN_KINDS:
         out += tok * 3 * cfg.d_ff * item * part("mlp")
     if kind in ("hybrid", "hybrid_global"):
         di = cfg.ssm_expand * d
-        out += rows * di * cfg.ssm_state * 4 * (S if grad else 1)
-        out += tok * 3 * di * item
+        out += (rows * di * cfg.ssm_state * 4 * (S if grad else 1)
+                + tok * 3 * di * item) * part("cell")
     return out
 
 
@@ -312,7 +320,7 @@ def lower_cell(arch: str, shape_name: str, mesh, *, microbatches: int = 1,
     wires = analysis.plan_collective_bytes(
         cfg, sizes, shape.kind, microbatches=microbatches,
         tokens=tokens_rank, batch=shape.global_batch,
-        cache_len=shape.seq_len)
+        cache_len=shape.seq_len, seq=shape.seq_len)
     mf = analysis.model_flops(cfg, tokens, "train" if train else "serve")
     roof = analysis.analyze_from(
         flops=flops, hbm_bytes=hbm, nvlink_bytes=wires["nvlink"],

@@ -23,8 +23,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..distributed.sharding import (all_reduce_max, copy_to_model,
-                                    data_sum, global_rows, model_rank,
-                                    reduce_from_model, slot_range)
+                                    data_sum, global_rows, mesh_axis_size,
+                                    model_rank, reduce_from_model,
+                                    slot_range, sum_model)
 from .blockwise_attn import blockwise_sdpa, should_use_blockwise
 
 
@@ -55,6 +56,17 @@ def stat(x):
 def rms_norm(x, scale, eps):
     xf = stat(x)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale
+
+
+def split_rms_norm(x, scale, eps):
+    """:func:`rms_norm` of ``x`` whose last dim is this rank's slice of
+    channels split over ``"model"`` (``scale`` the slice's): the fp32 sum
+    of squares summed over the axis, forward and backward
+    (``sharding.sum_model``), over the whole width."""
+    xf = stat(x)
+    width = x.shape[-1] * mesh_axis_size("model")
+    var = sum_model(torch.sum(xf * xf, dim=-1, keepdim=True)) / width
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * scale
 
 

@@ -39,8 +39,9 @@ the layout of a ``sharding.RankCache`` that ``init_cache`` or a prefill
 (``build_cache_len``) returns: the rank's rows, its KV heads where a
 block splits ``"kv"`` (every KV head otherwise), for one row its run of
 the slots over ``"data"`` (``sharding.slots_split``: attention and MLA
-then merge their softmaxes across the axis); MLA's latent and the
-recurrent states are every rank's of ``"model"``.
+then merge their softmaxes across the axis), its share of each
+recurrent state whose cell the block splits over ``"model"``; MLA's
+latent is every rank's of the axis.
 
 ``forward`` returns the reference's aux term with the logits: the sum of
 every ``moe``/``moe_swa`` layer's load-balancing loss (fp32 scalar, zero
@@ -150,7 +151,7 @@ class Block(nn.Module):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         h = _norm(x, self.norm1, cfg)
         if self.kind in CELLS:
-            out, st = CELLS[self.kind][1](h, self.cell, cfg)
+            out, st = CELLS[self.kind][1](h, self.cell, cfg, split=split)
             return x + out, aux, st if cache_len is not None else None
         window = _window(self.kind, cfg)
         if self.kind == "mla":
@@ -162,7 +163,7 @@ class Block(nn.Module):
                               else "causal", window=window,
                               mrope_positions=mrope_positions, split=split)
         if self.kind in HYBRID_KINDS:
-            s, st = ssm_lib.mamba_block(h, self.cell, cfg)
+            s, st = ssm_lib.mamba_block(h, self.cell, cfg, split=split)
             x, h2 = self._ffn(self._mix(x, a, s, cfg), cfg, split)
         else:
             x, h2 = self._ffn(x + a, cfg, split)
@@ -191,7 +192,8 @@ class Block(nn.Module):
         slots split over ``"data"`` (``sharding.slots_split``)."""
         h = _norm(x, self.norm1, cfg)
         if self.kind in CELLS:
-            out, st = CELLS[self.kind][1](h, self.cell, cfg, state=c)
+            out, st = CELLS[self.kind][1](h, self.cell, cfg, state=c,
+                                          split=split)
             return x + out, st
         if self.kind == "mla":
             a, nc = mla_lib.mla_attention(h, self.attn, cfg,
@@ -210,7 +212,8 @@ class Block(nn.Module):
                           slots=slots)
         if self.kind not in HYBRID_KINDS:
             return self._ffn(x + a, cfg, split)[0], kv
-        s, st = ssm_lib.mamba_block(h, self.cell, cfg, state=c["ssm"])
+        s, st = ssm_lib.mamba_block(h, self.cell, cfg, state=c["ssm"],
+                                    split=split)
         return self._ffn(self._mix(x, a, s, cfg), cfg, split)[0], {
             "kv": kv, "ssm": st}
 
@@ -273,6 +276,12 @@ def _own_slots(entry):
     return {k: t[:, lo:lo + n].clone() for k, t in entry.items()}
 
 
+def _cell_region(layer: int, split) -> dict:
+    """``{layer: region}`` where ``split`` (a block's ``Plan.split``)
+    splits its recurrent cell over ``"model"``, else ``{}``."""
+    return {layer: r for r in split & ssm_lib.CELL_REGIONS}
+
+
 def _keep_all(cuts: dict, units: dict) -> bool:
     """Whether every weight of ``units`` (``{name: unit}``) keeps its
     ``"model"`` cut on its unit (``sharding.keeps_model_cut``)."""
@@ -285,9 +294,12 @@ def _keep_all(cuts: dict, units: dict) -> bool:
 #: the KV heads ("kv"; without it every rank holds all of them); the
 #: MLP's hidden units; the routed experts, whole ("experts") or each by
 #: its hidden units ("expert_hidden"); the shared experts' hidden units;
-#: the vocab of the embedding, the logits and the loss
+#: the vocab of the embedding, the logits and the loss; a recurrent cell
+#: ("cell": an mLSTM's heads, an sLSTM's or a Mamba's channels) or an
+#: mLSTM's value columns of one head ("cell_values", where its heads are
+#: fewer than the ranks; ``models/ssm.py``)
 REGIONS = ("attn", "kv", "mlp", "experts", "expert_hidden", "shared",
-           "vocab")
+           "vocab", "cell", "cell_values")
 
 #: the cut dims of (``wi``, ``wg``, ``wo``) that split a feed-forward part,
 #: and the region each split is (a GELU MLP has no ``wg``: the last two)
@@ -311,13 +323,14 @@ def model_plan(kind, cfg, cuts: dict) -> Plan:
     ``"model"`` cuts ``cuts`` (``{name within the block:
     sharding.model_cut}``): which weights keep their ``"model"`` slice
     ("local"), which are gathered for compute every rank repeats ("full",
-    the default: norms, the router, the recurrent cells) and which are
-    gathered for use inside a split region ("partial").  A region splits
-    only where all of its sliced weights keep whole units: attention's
-    heads (``wq`` columns and ``wo`` rows of ``head_dim``), MLA's heads,
-    the MLP's and the shared experts' hidden units, the routed experts
-    (whole experts, or the hidden units of each)."""
-    modes, split = {}, set()
+    the default: norms, the router) and which are gathered for use inside
+    a split region ("partial").  A region splits only where all of its
+    sliced weights keep whole units: attention's heads (``wq`` columns
+    and ``wo`` rows of ``head_dim``), MLA's heads, the MLP's and the
+    shared experts' hidden units, the routed experts (whole experts, or
+    the hidden units of each), the recurrent cells (:func:`_cell_plan`).
+    """
+    modes, split = _cell_plan(kind, cfg, cuts)
     hd = cfg.resolved_head_dim
     if kind == "mla":
         m = cfg.mla
@@ -351,6 +364,53 @@ def model_plan(kind, cfg, cuts: dict) -> Plan:
             split.add(region)
             modes.update(dict.fromkeys(ws, "local"))
     return Plan(modes, frozenset(split))
+
+
+def _cell_plan(kind, cfg, cuts: dict):
+    """(modes, split regions) of a block's recurrent cell
+    (``models/ssm.py``): an mLSTM by heads ("cell") where each rank's
+    ``wq wk wv wo_gate`` columns, ``wo`` rows and gate columns hold whole
+    heads, else by value columns ("cell_values") where each rank's ``wv``
+    columns lie in one head (``wq wk wi wf`` then gathered, "partial");
+    an sLSTM by channels ("cell") where every weight is cut over
+    ``"model"``; a hybrid block's Mamba by channels ("cell") where
+    ``w_bcdt`` and ``w_out`` are (``w_in`` then gathered, its halves
+    sliced to the rank's channels, as the replicated ``conv``, ``a_log``,
+    ``d_skip`` and ``dt_bias``); the norm's scale "partial", sliced.
+    Nothing splits elsewhere: the cell is "full", every rank running all
+    of it."""
+    modes, split = {}, set()
+    if kind == "mlstm":
+        dk = cfg.d_model // cfg.n_heads
+        heads = {**dict.fromkeys(("cell.wq", "cell.wk", "cell.wv",
+                                  "cell.wo_gate", "cell.wo"), dk),
+                 "cell.wi": 1, "cell.wf": 1}
+        columns = ("cell.wv", "cell.wo_gate", "cell.wo")
+        if _keep_all(cuts, heads):
+            split.add("cell")
+            modes.update(dict.fromkeys(heads, "local"))
+        elif (_keep_all(cuts, dict.fromkeys(columns, 1))
+              and dk % cuts["cell.wv"][1] == 0):
+            split.add("cell_values")
+            modes.update(dict.fromkeys(columns, "local"))
+            modes.update(dict.fromkeys(("cell.wq", "cell.wk", "cell.wi",
+                                        "cell.wf"), "partial"))
+    elif kind == "slstm":
+        ws = ("cell.wz", "cell.wi", "cell.wf", "cell.wo_gate", "cell.r",
+              "cell.wo")
+        if _keep_all(cuts, dict.fromkeys(ws, 1)):
+            split.add("cell")
+            modes.update(dict.fromkeys(ws, "local"))
+    elif kind in HYBRID_KINDS and _keep_all(
+            cuts, dict.fromkeys(("cell.w_bcdt", "cell.w_out"), 1)):
+        split.add("cell")
+        modes.update(dict.fromkeys(("cell.w_bcdt", "cell.w_out"), "local"))
+        modes.update(dict.fromkeys(("cell.w_in", "cell.conv", "cell.a_log",
+                                    "cell.d_skip", "cell.dt_bias"),
+                                   "partial"))
+    if split and kind in CELLS:
+        modes["cell.out_norm"] = "partial"
+    return modes, split
 
 
 def vocab_plan(cuts: dict) -> Plan:
@@ -525,23 +585,30 @@ class Transformer(nn.Module):
         run where they split over ``"data"``."""
         sizes = sharding.mesh_sizes(current_mesh())
         rows = sharding.global_rows(B)
-        kv_split, slots = set(), set()
+        kv_split, slots, cells = set(), set(), {}
         for i, (blk, e) in enumerate(zip(self.layers, entries)):
-            if "kv" in self.block_plan(blk).split:
+            split = self.block_plan(blk).split
+            if "kv" in split:
                 kv_split.add(i)
+            cells.update(_cell_region(i, split))
             if _slot_dicts(e) and sharding.slots_split(rows, _n_slots(e),
                                                        sizes):
                 slots.add(i)
                 entries[i] = _own_slots(e)
         return sharding.RankCache(
             entries, [a for a in current_dp_axes() if sizes.get(a, 1) > 1],
-            kv_split, slots)
+            kv_split, slots, cells)
 
-    def _init_block_cache(self, kind, B, max_seq, kvh=None, slots=1):
+    def _init_block_cache(self, kind, B, max_seq, kvh=None, slots=1,
+                          cell=None, ranks=1):
         """``slots``: into how many runs the KV slots are split (this
-        rank's is made); ``kvh``: the KV heads held (default all)."""
+        rank's is made); ``kvh``: the KV heads held (default all);
+        ``cell``: the region that splits the recurrent state over the
+        ``ranks`` of ``"model"`` (``sharding.RankCache``'s ``cells``),
+        this rank's piece made."""
         cfg, dev, dtype = self.cfg, self.device, self.embed.dtype
         f32 = dict(dtype=torch.float32, device=dev)
+        part = ranks if cell else 1           # a split state's share
         if kind == "mla":
             m, T = cfg.mla, max_seq // slots
             return {"c_kv": torch.zeros((B, T, m.kv_lora_rank),
@@ -550,10 +617,12 @@ class Transformer(nn.Module):
                                           dtype=dtype, device=dev)}
         if kind == "mlstm":
             H, dk = cfg.n_heads, cfg.d_model // cfg.n_heads
-            return (torch.zeros((B, H, dk, dk), **f32),
+            H, dv = (1, cfg.d_model // ranks) if cell == "cell_values" else (
+                H // part, dk)
+            return (torch.zeros((B, H, dk, dv), **f32),
                     torch.zeros((B, H, dk), **f32), torch.zeros((B, H), **f32))
         if kind == "slstm":
-            return tuple(torch.zeros((B, cfg.d_model), **f32)
+            return tuple(torch.zeros((B, cfg.d_model // part), **f32)
                          for _ in range(4))
         n_slots = kv_len(kind, cfg, max_seq) // slots
         int8 = cfg.kv_cache_dtype == "int8"
@@ -567,7 +636,7 @@ class Transformer(nn.Module):
             kv["k_scale"] = torch.zeros(shape[:3], **f32)
             kv["v_scale"] = torch.zeros(shape[:3], **f32)
         if kind in HYBRID_KINDS:
-            di = cfg.ssm_expand * cfg.d_model
+            di = cfg.ssm_expand * cfg.d_model // part
             return {"kv": kv, "ssm": (
                 torch.zeros((B, di, cfg.ssm_state), **f32),
                 torch.zeros((B, cfg.conv_width - 1, di), dtype=dtype,
@@ -581,8 +650,10 @@ class Transformer(nn.Module):
         ``sharding.RankCache``: its rows (``sharding.row_axes``), its KV
         heads where the layer's plan splits ``"kv"`` over ``"model"``
         (every KV head otherwise), for ``B == 1`` its run of the slots
-        where they split over ``"data"`` (``sharding.slots_split``); MLA's
-        latent and the recurrent states are every rank's of the axis."""
+        where they split over ``"data"`` (``sharding.slots_split``), its
+        share of each recurrent state the plan splits over ``"model"``
+        (``sharding.RankCache``'s ``cells``); MLA's latent is every
+        rank's of the axis."""
         if self.gather is None:
             return [self._init_block_cache(blk.kind, B, max_seq)
                     for blk in self.layers]
@@ -596,21 +667,23 @@ class Transformer(nn.Module):
         layer, ``Plan.split``), as :meth:`init_cache` lays it out (the
         dry-run builds it on ``meta``)."""
         m, data = sizes.get("model", 1), sizes.get("data", 1)
-        entries, kv_split, slots = [], set(), set()
+        entries, kv_split, slots, cells = [], set(), set(), {}
         for i, (blk, split) in enumerate(zip(self.layers, splits)):
             kvh = None
             if "kv" in split:
                 kv_split.add(i)
                 kvh = self.cfg.n_kv_heads // m
+            cells.update(_cell_region(i, split))
             n = 1
             if blk.kind not in CELLS and sharding.slots_split(
                     B, kv_len(blk.kind, self.cfg, max_seq), sizes):
                 slots.add(i)
                 n = data
             entries.append(self._init_block_cache(
-                blk.kind, sharding.rows_per_rank(B, sizes), max_seq, kvh, n))
+                blk.kind, sharding.rows_per_rank(B, sizes), max_seq, kvh, n,
+                cells.get(i), m))
         return sharding.RankCache(entries, sharding.row_axes(B, sizes),
-                                  kv_split, slots)
+                                  kv_split, slots, cells)
 
     @torch.no_grad()
     def decode_step(self, tokens, cache, index: int):

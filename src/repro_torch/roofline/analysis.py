@@ -91,16 +91,30 @@ def step_plan(cfg, sizes: dict) -> StepPlan:
 def active_params_per_rank(cfg, sizes: dict) -> float:
     """:func:`active_params` of one rank of the sharded train or serving
     step: a weight the plan keeps split over ``"model"``
-    (:func:`step_plan`) counts 1/m, the rest in full (every rank of the
-    axis repeats that compute)."""
-    modes = step_plan(cfg, sizes).modes
+    (:func:`step_plan`) counts 1/m, and so does a weight a split cell
+    gathers and slices to the rank's channels (a Mamba's ``w_in``), or
+    1/H where it slices it to one of H heads (an mLSTM's ``wq wk wi wf``
+    in "cell_values"); the rest counts in full (every rank of the axis
+    repeats that compute)."""
+    from ..models.ssm import CELL_REGIONS
+
+    plan = step_plan(cfg, sizes)
     m = sizes.get("model", 1)
     total = 0.0
     for path, (shape, _) in param_shapes(cfg).items():
         n = float(math.prod(shape))
         if ".moe.w" in path and ".shared." not in path:
             n *= cfg.top_k / max(1, cfg.n_experts)
-        total += n / (m if modes[path] == "local" else 1)
+        mode = plan.modes[path]
+        split = (plan.layers[int(path.split(".")[1])]
+                 if path.startswith("layers.") else plan.top)
+        if mode == "local":
+            n /= m
+        elif mode == "partial" and ".cell." in path and split & CELL_REGIONS:
+            heads = "cell_values" in split and path.endswith(
+                (".wq", ".wk", ".wi", ".wf"))
+            n /= cfg.n_heads if heads else m
+        total += n
     return total
 
 
@@ -211,11 +225,13 @@ class _Wire:
 
 def plan_collective_bytes(cfg, mesh_sizes: dict, kind: str, *,
                           microbatches: int = 1, tokens: int = 0,
-                          batch: int = 0, cache_len: int = 0) -> dict:
+                          batch: int = 0, cache_len: int = 0,
+                          seq: int = 0) -> dict:
     """Per-rank wire bytes of one step of the port's plan on a mesh of
     ``mesh_sizes`` (``{axis: size}``, axes in mesh order), by fabric and by
     collective: ``{"nvlink", "net", "by_kind"}``; ``tokens`` are the
-    rank's tokens a step (its rows x the sequence), ``batch`` a serving
+    rank's tokens a step (its rows x the sequence), ``seq`` a train
+    step's sequence (needed where it splits an sLSTM), ``batch`` a serving
     step's global rows and ``cache_len`` its decode cache's length.
 
     Counts the plan of ``distributed/sharding.py``, not HLO.  ``train``
@@ -223,8 +239,10 @@ def plan_collective_bytes(cfg, mesh_sizes: dict, kind: str, *,
 
     * a weight is all-gathered over ``"data"`` where it is sharded there,
       and over ``"model"`` only where the plan gathers it ("full" or
-      "partial": an off-boundary KV projection, MLA's ``wq_down``, the
-      recurrent cells), once a forward and, under ``remat == "layer"``,
+      "partial": an off-boundary KV projection, MLA's ``wq_down``, a
+      split Mamba's ``w_in``, an mLSTM's ``wq``/``wk`` split by value
+      columns, a cell that does not split), once a forward and, under
+      ``remat == "layer"``,
       once more for a block's recompute: a split weight moves 1/m of its
       bytes over ``"data"``;
     * the backward returns each gradient to its shard in fp32: over
@@ -242,12 +260,21 @@ def plan_collective_bytes(cfg, mesh_sizes: dict, kind: str, *,
       MoE its fp32 combine and, in the backward, its input's and its
       gates' gradients; under ``remat == "layer"`` the recompute repeats
       the forward all-reduces up to the block's last saved tensor
-      (PyTorch's checkpoint stops there): all but a split MLP's, after
-      which a block runs only its residual add (an MoE block's balance
-      term runs after its experts, so it repeats them all); a split vocab
-      all-reduces the
+      (PyTorch's checkpoint stops there): all but a split MLP's or a
+      split mLSTM's or sLSTM's output, after which a block runs only its
+      residual add (an MoE block's balance term runs after its experts,
+      so it repeats them all); a split vocab all-reduces the
       embedding's output, the unembedding's input gradient, and the
       loss's max, sum of exps and gold logit (fp32, a token each);
+    * a split cell (``models/ssm.py``) all-reduces its output (the model
+      dtype) and its input's gradient as a split attention does; an
+      mLSTM or sLSTM the fp32 sum of squares of its norm (a token each),
+      a Mamba its fp32 B, C and dt (2N + 1 a token), each once forward
+      and once backward; an sLSTM all-gathers its ``h`` (the model
+      dtype) each step and reduce-scatters its fp32 gradient each step
+      of the backward but the first (its zero state carries none),
+      counted as one collective of all the steps' bytes, and its
+      recompute repeats the gathers;
     * a MoE layer whose tokens fall back to one dispatch group
       (``models/moe.py::dispatch_groups``) all-gathers its input rows over
       the data-parallel axes, once a forward and once more in a block's
@@ -262,7 +289,8 @@ def plan_collective_bytes(cfg, mesh_sizes: dict, kind: str, *,
     plan's forward does (over ``"data"``, and over ``"model"`` only the
     exceptions), no gradient; with ``tokens``, the split regions'
     all-reduces of their outputs over ``"model"`` (the vocab-parallel
-    embedding's too); a MoE layer's row gathers where it falls back to
+    embedding's too, and a split cell's sums and its sLSTM's step
+    gathers); a MoE layer's row gathers where it falls back to
     one group, and in a prefill the balance term's fractions (fp32, E
     each) all-reduced over each row axis; in a decode step of one row
     whose slots split over ``"data"`` (``sharding.slots_split``), each
@@ -316,7 +344,7 @@ def plan_collective_bytes(cfg, mesh_sizes: dict, kind: str, *,
             wire.add("all-reduce", "pod", g)
     if train and tokens:
         _activation_all_reduces(wire, cfg, plan, tokens / microbatches,
-                                passes)
+                                passes, seq)
     if not train and tokens:
         _serving_activations(wire, cfg, plan,
                              kind, tokens, batch, cache_len)
@@ -352,11 +380,24 @@ def _row_gather(wire, sizes: dict, rows: tuple, nbytes: float,
         wire.add("all-gather", a, nbytes, times)
 
 
+def _cell_sums(cfg, kind: str, tok: float) -> list:
+    """The all-reduces over ``"model"`` of a split cell's forward over
+    ``tok`` tokens a rank, in its order (bytes each): the mLSTM's and
+    sLSTM's fp32 sum of squares of their norm, or a Mamba's fp32 B, C and
+    dt, then the output (the model dtype).  The backward's are the same
+    bytes: the sums' gradients and the input's."""
+    per_tok = 2 * cfg.ssm_state + 1 if kind in ("hybrid",
+                                                 "hybrid_global") else 1
+    return [tok * per_tok * 4, tok * cfg.d_model * _item(cfg)]
+
+
 def _activation_all_reduces(wire, cfg, plan: StepPlan, tok: float,
-                            passes: int) -> None:
+                            passes: int, seq: int) -> None:
     """The split regions' all-reduces over ``"model"`` of ``passes``
     microbatches of ``tok`` tokens a rank, and the row gathers of the MoE
     layers that fall back to one group (:func:`plan_collective_bytes`)."""
+    from ..models.ssm import CELL_REGIONS
+
     sizes = wire.sizes
     item = _item(cfg)
     act = tok * cfg.d_model * item
@@ -374,12 +415,21 @@ def _activation_all_reduces(wire, cfg, plan: StepPlan, tok: float,
         if "model" not in sizes:
             continue
         routed = split & {"experts", "expert_hidden"}
-        fwd = ([act] if "attn" in split else []) + (
+        cell = _cell_sums(cfg, kind, tok) if split & CELL_REGIONS else []
+        fwd = ([act] if "attn" in split else []) + cell + (
             [tok * R * cfg.d_model * 4] if routed else []) + (
             [act] if split & {"mlp", "shared"} else [])
-        rec = fwd[:-1] if "mlp" in split else fwd
-        bwd = ([act] if "attn" in split else []) + (
+        last = "mlp" in split or (bool(cell) and kind in ("mlstm", "slstm"))
+        rec = fwd[:-1] if last else fwd
+        bwd = ([act] if "attn" in split else []) + cell + (
             [act] if split & {"mlp", "shared"} else [])
+        if cell and kind == "slstm":
+            if not seq:
+                raise ValueError("a split sLSTM's step collectives need "
+                                 "the train step's seq")
+            wire.add("all-gather", "model", act, passes * (1 + remat))
+            wire.add("reduce-scatter", "model",
+                     tok * (seq - 1) / seq * cfg.d_model * 4, passes)
         if routed:
             bwd.append(tok * R * cfg.top_k * 4)          # the gates
             if "shared" not in split or R > 1:           # the input's own
@@ -399,6 +449,7 @@ def _serving_activations(wire, cfg, plan: StepPlan, kind: str,
     plan_collective_bytes`): ``tokens`` a rank over the rows of a
     ``batch``-row batch."""
     from ..distributed.sharding import row_axes, rows_per_rank, slots_split
+    from ..models.ssm import CELL_REGIONS
     from ..models.transformer import kv_len
 
     sizes = wire.sizes
@@ -413,6 +464,11 @@ def _serving_activations(wire, cfg, plan: StepPlan, kind: str,
     for lk, split in zip(_kinds(cfg), plan.layers):
         if "attn" in split:
             wire.add("all-reduce", "model", act)
+        if split & CELL_REGIONS:
+            for nbytes in _cell_sums(cfg, lk, tokens):
+                wire.add("all-reduce", "model", nbytes)
+            if lk == "slstm":
+                wire.add("all-gather", "model", act)
         if lk in ("moe", "moe_swa"):
             R = _moe_gathers(cfg, sizes, tokens, rows)
             if R > 1:

@@ -16,7 +16,9 @@ serving steps' own layout, whose bytes ``tests/
 test_torch_sharded_serving.py`` holds equal to a ``gloo`` step's), the
 whole dry-run over all 40 cells x {single, multi} on meta (no record
 counts a hypothetical plan; each serving record's wire bytes are
-``plan_collective_bytes``'), and its CLI writing and resuming a JSONL.
+``plan_collective_bytes``'), and its CLI writing and resuming a JSONL;
+xlstm-1.3b's ``train_4k`` fitting both production meshes with its
+recurrent cells split over "model".
 """
 import dataclasses
 import json
@@ -206,6 +208,39 @@ def test_train_4k_counts_the_split_plan(arch):
     assert rec["roofline"]["t_collective"] == pytest.approx(
         wires["nvlink"] / hardware.H100[hardware.PLANNED]["nvlink_bw"]
         + wires["net"] / hardware.H100[hardware.PLANNED]["net_bw"])
+
+
+@pytest.mark.parametrize("mesh", [{"data": 16, "model": 16},
+                                  {"pod": 2, "data": 16, "model": 16}])
+def test_xlstm_train_4k_fits_with_its_cells_split(mesh):
+    """xlstm-1.3b ``train_4k`` fits 80 GB a rank on both production
+    meshes: its 4 mLSTM heads do not divide 16 ranks, so each mLSTM is
+    split by value columns (4 ranks a head, ``wq``/``wk`` gathered) and
+    each sLSTM by channels; autograd keeps 1/16 of every step's state
+    (the one-layer estimate, against the whole state's), and the split
+    cells' all-reduces and the sLSTMs' step gathers cross "model"."""
+    cfg = registry.get_config("xlstm-1.3b")
+    rec = dryrun.lower_cell("xlstm-1.3b", "train_4k", mesh)
+    assert rec["status"] == "ok" and rec["fits"] is True
+    assert rec["per_rank_bytes"]["total"] < 40e9
+    plan = analysis.step_plan(cfg, mesh)
+    kinds = [k for k, c in cfg.segments for _ in range(c)]
+    assert [s for s in plan.layers] == [
+        {"cell_values"} if k == "mlstm" else {"cell"} for k in kinds]
+    specs = param_specs({n: s for n, (s, _) in
+                         analysis.param_shapes(cfg).items()}, mesh)
+    gathered = {n.split(".", 2)[2] for n, m in plan.modes.items()
+                if n.startswith("layers.") and m != "local"
+                and "model" in specs[n]}
+    assert gathered == {"cell.wq", "cell.wk"}
+    rows = rec["rows_per_rank"]
+    dk = cfg.d_model // cfg.n_heads
+    whole = rows * cfg.n_heads * dk * dk * 4 * 4096
+    assert rec["activation_estimate_parts"]["one_layer"] < whole / 15
+    wires = analysis.plan_collective_bytes(
+        cfg, mesh, "train", tokens=rows * 4096, seq=4096)["by_axis"]
+    assert wires["all-gather/model"] > 0 and wires["all-reduce/model"] > 0
+    assert rec["roofline"]["by_kind"]["reduce-scatter"]["count"] > 0
 
 
 @pytest.mark.parametrize("arch,shape", [

@@ -25,10 +25,10 @@ One module fixture spawns 4 ``gloo`` ranks on a ("data", "model")
   same bounds; its bytes by collective and axis against the dry-run's
   count of that fallback;
 * which weights each rank gathered along "model" (only the exceptions:
-  an off-boundary KV projection, MLA's ``wq_down``, the recurrent
-  cells, here hymba-1.5b's Mamba half beside its split attention) and
-  how many bytes, against the count of those weights; hymba's step
-  against the port's replicated step on the whole batch;
+  an off-boundary KV projection, MLA's ``wq_down``, a split Mamba's
+  ``w_in``, here hymba-1.5b's beside its split attention) and how many
+  bytes, against the count of those weights (hymba's step against JAX's
+  is in ``tests/test_torch_recurrent_parallel.py``);
 * the bytes a rank of the qwen3-8b and deepseek-moe-16b steps moved, by
   collective and axis, against the dry-run's count of the plan, with
   remat "none" and "layer";
@@ -45,6 +45,7 @@ import datetime
 import json
 import multiprocessing
 import os
+import pickle
 import time
 
 import jax
@@ -73,7 +74,7 @@ ARCHS = {"qwen3-8b": {}, "gemma-2b": {}, "minicpm3-4b": {},
 EXCEPTIONS = {"qwen3-8b": [], "gemma-2b": ["attn.wk", "attn.wv"],
               "minicpm3-4b": ["attn.wq_down"], "deepseek-moe-16b": [],
               "mixtral-8x22b": [],
-              "hymba-1.5b": ["cell.w_bcdt", "cell.w_in", "cell.w_out"]}
+              "hymba-1.5b": ["cell.w_in"]}
 #: the steps held against JAX: each arch of ``ARCHS`` on 8 rows of 16
 #: tokens, and deepseek-moe-16b where the reference's MoE falls back to
 #: one dispatch group -> (arch, rows, seq)
@@ -149,16 +150,14 @@ def _expected_model_bytes(model, names, m) -> int:
 
 def _step(out, arch, cfg, model, toks, mesh):
     """One sharded step of ``model`` (``arch``: a key of ``STEPS`` or an
-    arch); its full params, m, v, loss, aux, the names gathered along
-    "model" and the bytes received there."""
+    arch): its full params, m, v, loss, aux, the names gathered along
+    "model" and the bytes received there, into ``out``."""
     import torch
 
     from repro_torch.distributed import sharding
     from repro_torch.optim import adamw
     from repro_torch.train import train_step as tts
 
-    full = {n: p.full_tensor().detach().clone()
-            for n, p in model.named_parameters()}
     opt = adamw.init(dict(model.named_parameters()))
     step = tts.make_train_step(cfg, adamw.AdamWConfig(lr=LR), mesh=mesh)
     sharding.reset_wire_counts()
@@ -176,7 +175,6 @@ def _step(out, arch, cfg, model, toks, mesh):
                                 "m": opt["m"], "v": opt["v"]})
     for part, tree in host.items():
         out.update({f"{arch}.{part}.{n}": t.numpy() for n, t in tree.items()})
-    return full
 
 
 def _step_wire(cfg, params_np, toks, mesh) -> str:
@@ -196,23 +194,6 @@ def _step_wire(cfg, params_np, toks, mesh) -> str:
     step(model, opt, {"tokens": torch.from_numpy(toks)})
     return json.dumps({k: v for k, v in sharding.wire_counts().items()
                        if k != "model_gathered"})
-
-
-def _replicated_step(cfg, full, toks):
-    """The port's replicated step on the whole batch from the weights
-    ``full``: (loss, AdamW's ``m``)."""
-    import torch
-
-    from repro_torch.models.transformer import Transformer
-    from repro_torch.optim import adamw
-    from repro_torch.train import train_step as tts
-
-    model = Transformer(cfg, device="cpu")
-    model.load_state_dict(full)
-    opt = adamw.init(dict(model.named_parameters()))
-    m = tts.make_train_step(cfg, adamw.AdamWConfig(lr=LR))(
-        model, opt, {"tokens": torch.from_numpy(toks)})
-    return m["loss"], opt["m"]
 
 
 def _close(got, want, atol, rtol=1e-4) -> float:
@@ -365,10 +346,9 @@ def _module_checks(mesh) -> dict:
     return res
 
 
-def _rank4(rank, store_path, out_dir, inputs):
-    """One of 4 ranks (module docstring); rank 0 writes the steps'
-    results, every rank its module checks."""
-    import torch
+def _rank4(rank, store_path, out_dir):
+    """One of 4 ranks (module docstring) on the inputs the fixture wrote;
+    rank 0 writes the steps' results, every rank its module checks."""
     import torch.distributed as dist
 
     from repro_torch.distributed import sharding
@@ -378,6 +358,8 @@ def _rank4(rank, store_path, out_dir, inputs):
 
     _init(rank, 4, store_path)
     try:
+        with open(os.path.join(out_dir, "inputs.pkl"), "rb") as f:
+            inputs = pickle.load(f)      # written by this test's fixture
         out = {}
         mesh = make_mesh((2, 2), ("data", "model"), device_type="cpu")
         for case, (arch, _, _) in STEPS.items():
@@ -390,18 +372,11 @@ def _rank4(rank, store_path, out_dir, inputs):
                 out[f"{arch}.wire.layer"] = np.asarray(_step_wire(
                     dataclasses.replace(cfg, remat="layer"), params_np,
                     toks, mesh))
-        # a recurrent half: hymba's Mamba cell runs on gathered weights
+        # a recurrent half: hymba's Mamba cell split by channels
         cfg = _reduced(registry, "hymba-1.5b")
-        toks = _tokens(cfg)
         model = sharding.shard_model(init_params(cfg, seed=0, device="cpu"),
                                      mesh)
-        full = _step(out, "hymba-1.5b", cfg, model, toks, mesh)
-        loss, m = _replicated_step(cfg, full, toks)
-        out["hymba-1.5b.want_loss"] = loss.numpy()
-        # m = 0.1 x the clipped gradient: the gradient bound scaled so
-        out["hymba-1.5b.grad_excess"] = np.asarray(max(
-            _close(torch.from_numpy(out[f"hymba-1.5b.m.{n}"]), t, 1e-6)
-            for n, t in m.items()))
+        _step(out, "hymba-1.5b", cfg, model, _tokens(cfg), mesh)
         mine = _module_checks(mesh)
         np.savez(os.path.join(out_dir, f"modules{rank}.npz"),
                  **{k: np.asarray(v) for k, v in mine.items()})
@@ -433,9 +408,14 @@ def _spawn(target, world, *args):
 
 @pytest.fixture(scope="module")
 def four_ranks(jax_steps, tmp_path_factory):
+    """The 4 ranks' results; their inputs reach them in a file (a large
+    argument would hold each rank's start until the one before had
+    imported this module)."""
     tmp = tmp_path_factory.mktemp("tp4")
-    inputs = {a: (r["params"], r["toks"]) for a, r in jax_steps.items()}
-    _spawn(_rank4, 4, str(tmp / "store"), str(tmp), inputs)
+    with open(tmp / "inputs.pkl", "wb") as f:
+        pickle.dump({a: (r["params"], r["toks"])
+                     for a, r in jax_steps.items()}, f)
+    _spawn(_rank4, 4, str(tmp / "store"), str(tmp))
     return dict(dict(np.load(tmp / "ranks4.npz")),
                 modules=[dict(np.load(tmp / f"modules{r}.npz"))
                          for r in range(4)])
@@ -483,16 +463,11 @@ def test_tp_step_matches_jax_gspmd(four_ranks, jax_steps, arch):
 @pytest.mark.parametrize("arch", [*ARCHS, "hymba-1.5b"])
 def test_model_gathers_only_the_exceptions(four_ranks, arch):
     """Along "model" a rank gathers only the exception weights of its
-    arch, each once (remat "none"), and receives exactly their bytes;
-    hymba's step (split attention, gathered Mamba cell) equals the port's
-    replicated step on the whole batch."""
+    arch, each once (remat "none"), and receives exactly their bytes
+    (hymba: the Mamba's ``w_in`` alone, its cell split by channels)."""
     got = four_ranks
     assert sorted(got[f"{arch}.gathered"].tolist()) == EXCEPTIONS[arch]
     assert int(got[f"{arch}.model_bytes"]) == int(got[f"{arch}.want_bytes"])
-    if arch == "hymba-1.5b":
-        assert abs(float(got[f"{arch}.loss"])
-                   - float(got[f"{arch}.want_loss"])) < 1e-4
-        assert float(got[f"{arch}.grad_excess"]) <= 0
 
 
 @pytest.mark.parametrize("module", MODULES)
