@@ -29,6 +29,20 @@ network)::
    then a ``drain``.
 3. Holds every QUERY and RANGE answer and the final live table against a
    numpy last-writer-wins oracle of the same stream.
+3b. (Runs after phase 3.)  The eager write path, the JAX package's
+   pre-fusion baseline, beside the fused one: two ``TorchNBTreeEngine``s
+   of phase 2's shape (``fused=True`` and ``fused=False``, ``EAGER``) fed
+   one stream, 2^20 keys (cut from 2^22 for time; it prints the cut)
+   drawn from 2^26 in YCSB's hashed order in batches of 4,096, a delete
+   batch of 256 inserted keys after every 8th,
+   ``maintain(1)`` after each batch, then a ``drain``.  The seven tables,
+   the host tree and ``_next_id`` must be equal bit for bit, both
+   ``dump_live`` must equal a numpy oracle, and 4,096 point queries and
+   256 ranges must give equal answers, equal to the oracle's.  Prints, per
+   path, the reference ingest benchmark's fields
+   (``benchmarks/bench_ingest_device.py``): insert ops/s, dispatches per
+   insert batch and per maintain unit, maintain-unit p50/p99/p100
+   (each unit synchronised), and its kernel launches.
 4. Serves qwen3-8b at full width and depth (bf16 weights drawn on the card
    from ``--seed``) through ``repro_torch.serve.engine.Engine``
    (max_batch 4, 1024 pages of 8 slots, fp32 pages): 8 requests of
@@ -217,8 +231,10 @@ network)::
 Kernel launch counters are zeroed just before each path (2-3, 4, the
 measured runs of 8a and 8b, 9a, 10a, 11a, 12a-12b and 12d, 13a-13b and
 13d, 6, 7) and read just after; every kernel
-must have launched on its own path (the four NB-tree kernels of the write
-side and the point reads on phase 6's too, and those and
+must have launched on its own path (3b counts each write path's launches
+around its own calls: the eager one must launch ``merge_sorted`` and the
+three read kernels, and no ``merge_sorted_batch``; the four NB-tree
+kernels of the write side and the point reads on phase 6's too, and those and
 ``range_scan_rows`` on phase 7's; the root merge, the search, the probe
 and ``paged_attention`` on 8a-8b's, summed as the path ``archs``, and on
 9a's, the path ``variants``).  Prints a ``kernels`` JSON line, the card's name and power limit,
@@ -1727,6 +1743,208 @@ def phase_main_path(dev, args):
     log(f"  Bloom: {st.bloom_probes} probes, {st.bloom_negative_skips} "
         f"negative skips, {st.bloom_false_positives} false positives")
     return launches, ds
+
+
+# ----------------------------------------------------------------- phase 3b
+#: phase 3b: the eager write path (``fused=False``) beside the fused one,
+#: phase 2's index shape, one stream into both
+EAGER = dict(f=4, sigma=4096, max_nodes=4096, max_results=128,
+             keys=1 << 20, key_space=1 << 26, batch=4096, delete_every=8,
+             deletes=256, queries=4096, ranges=256, span=1 << 11)
+#: kernels the eager path must launch: the single-pair merge on its write
+#: side, and those of the reads after it
+EAGER_KERNELS = ("merge_sorted", "sorted_search_rows", "bloom_probe_rows",
+                 "range_scan_rows")
+
+
+def tree_shape(node):
+    return (node.nid, node.count, tuple(node.skeys),
+            tuple(tree_shape(c) for c in node.children))
+
+
+class IngestTally:
+    """The reference ingest benchmark's fields for one write path
+    (``benchmarks/bench_ingest_device.py::_ingest``): wall time of the
+    writes, their maintenance and the drain; dispatches by insert batch and
+    by maintain unit; each unit's wall time (synchronised); kernel
+    launches made inside this path's calls."""
+
+    def __init__(self, engine):
+        self.engine, self.idx = engine, engine.idx
+        self.wall = self.drain_s = 0.0
+        self.batches = self.insert_disp = 0
+        self.unit_s: list = []
+        self.units = {"flush": 0, "split": 0}
+        self.unit_disp = {"flush": 0, "split": 0}
+        self.launches = collections.Counter()
+        self.flushes = 0
+        plain_flush = self.idx._flush
+
+        def counted_flush(node):
+            self.flushes += 1
+            plain_flush(node)
+
+        self.idx._flush = counted_flush
+
+    def _launched(self, fn):
+        from repro_torch.kernels import ops
+        before = ops.launch_counts()
+        out = fn()
+        self.launches.update({k: v - before[k]
+                              for k, v in ops.launch_counts().items()})
+        return out
+
+    def write(self, batch) -> None:
+        d0 = self.idx.dispatch_count
+        t0 = time.perf_counter()
+        self._launched(lambda: self.engine.apply(batch))   # syncs
+        self.wall += time.perf_counter() - t0
+        self.insert_disp += self.idx.dispatch_count - d0
+        self.batches += 1
+
+    def maintain(self) -> None:
+        """One ``maintain(1)``, timed to its device work's end."""
+        u0, d0, f0 = self.idx.units_done, self.idx.dispatch_count, self.flushes
+        t0 = time.perf_counter()
+        self._launched(lambda: self.engine.maintain(1))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        self.wall += dt
+        if self.idx.units_done > u0:
+            kind = "flush" if self.flushes > f0 else "split"
+            self.unit_s.append(dt)
+            self.units[kind] += 1
+            self.unit_disp[kind] += self.idx.dispatch_count - d0
+
+    def drain(self) -> None:
+        d0, u0 = self.idx.dispatch_count, self.idx.units_done
+        t0 = time.perf_counter()
+        self._launched(self.engine.drain)
+        torch.cuda.synchronize()
+        self.drain_s = time.perf_counter() - t0
+        self.wall += self.drain_s
+        self.drain_units = self.idx.units_done - u0
+        self.drain_disp = self.idx.dispatch_count - d0
+
+    def line(self, label: str, n_ops: int) -> str:
+        units = sum(self.units.values()) + self.drain_units
+        ms = np.asarray(self.unit_s) * 1e3
+        per = {k: self.unit_disp[k] / max(self.units[k], 1)
+               for k in self.units}
+        inside = self.idx.units_done - units
+        disp = sum(self.unit_disp.values()) + self.drain_disp
+        return (f"  {label}: {n_ops} write ops in {self.wall:.3f} s "
+                f"({n_ops / self.wall:.1f} insert ops/s incl. maintain(1) "
+                f"per batch and the drain); "
+                f"{self.insert_disp / self.batches:.3f} dispatches per "
+                f"insert batch (with the {inside} units its backpressure "
+                f"ran); "
+                f"{disp / units:.3f} per maintain unit "
+                f"({self.units['flush']} flush units, {per['flush']:.3f} "
+                f"each; {self.units['split']} split "
+                f"units, {per['split']:.3f} each; {self.drain_units} in the "
+                f"drain of {self.drain_s * 1e3:.3f} ms); maintain-unit p50 "
+                f"{pct(ms, 50):.3f} ms, p99 {pct(ms, 99):.3f} ms, p100 "
+                f"{ms.max():.3f} ms; launches "
+                + json.dumps({k: v for k, v in sorted(self.launches.items())
+                              if v}))
+
+
+def phase_eager(dev) -> dict:
+    """Phase 3b; returns the eager path's kernel launches."""
+    from repro_torch.core.engine_api import OpBatch, OpKind, TorchNBTreeEngine
+    from repro_torch.core.splitmix import splitmix64
+    from repro_torch.core.state import TABLES
+
+    c = EAGER
+    if c["keys"] < 1 << 22:
+        log(f"  CUT: {c['keys']} keys instead of 2^22: the stream of 2^22 "
+            "took 81.4 s for both paths on an H100 80GB HBM3 at 700 W "
+            "(fused 35.7 s, eager 42.4 s), over this phase's ~30 s share "
+            "of the run's limit")
+    cfg = dict(f=c["f"], sigma=c["sigma"], max_nodes=c["max_nodes"],
+               max_results=c["max_results"], device=dev)
+    tallies = {fused: IngestTally(TorchNBTreeEngine(fused=fused, **cfg))
+               for fused in (True, False)}
+    # YCSB's hashed insertion order: key i is splitmix64(i) % space
+    keys = (splitmix64(np.arange(c["keys"], dtype=np.uint64))
+            % np.uint64(c["key_space"])).astype(np.uint32)
+    vals = np.arange(c["keys"], dtype=np.int32)
+    rng = np.random.default_rng(7)
+    log_k, log_v = [], []               # every write in order, -1 = delete
+    for b, i in enumerate(range(0, c["keys"], c["batch"])):
+        batches = [OpBatch.inserts(keys[i:i + c["batch"]],
+                                   vals[i:i + c["batch"]])]
+        if b % c["delete_every"] == c["delete_every"] - 1:
+            batches.append(OpBatch.deletes(
+                keys[rng.integers(0, i + c["batch"], c["deletes"])]))
+        for batch in batches:
+            log_k.append(batch.keys)
+            log_v.append(np.where(batch.kinds == int(OpKind.DELETE), -1,
+                                  batch.vals))
+            for t in tallies.values():
+                t.write(batch)
+        for t in tallies.values():
+            t.maintain()
+    for t in tallies.values():
+        t.drain()
+    # last writer wins over the whole log, then deletes drop out
+    log_k, log_v = np.concatenate(log_k), np.concatenate(log_v)
+    n_ops = len(log_k)
+    uk, last = np.unique(log_k[::-1], return_index=True)
+    uv = log_v[::-1][last]
+    oracle = Oracle(uk[uv >= 0], uv[uv >= 0])
+    fused, eager = (tallies[f].idx for f in (True, False))
+
+    # ---- the two indexes hold the same state, bit for bit ------------------
+    for name in TABLES:
+        assert torch.equal(getattr(fused, name), getattr(eager, name)), name
+    assert tree_shape(fused.root) == tree_shape(eager.root), "host tree"
+    assert fused._next_id == eager._next_id and not fused._pending \
+        and not eager._pending
+    for t in tallies.values():
+        k, v = t.engine.dump_live()
+        assert np.array_equal(k, oracle.keys), "dump_live keys != oracle"
+        assert np.array_equal(v, oracle.vals), "dump_live vals != oracle"
+    log(f"  {n_ops} write ops ({c['keys']} inserts of keys drawn from "
+        f"{c['key_space']} in YCSB's hashed order, a delete batch of "
+        f"{c['deletes']} after every {c['delete_every']}th insert batch): "
+        f"the seven tables, the host tree and _next_id ({eager._next_id}) "
+        f"equal on both paths bit for bit; both dump_live == oracle "
+        f"({len(oracle.keys)} pairs); height {eager.height}, "
+        f"{eager.max_nodes} rows")
+
+    # ---- reads: equal on both, and equal to the oracle ---------------------
+    q = np.concatenate([keys[rng.integers(0, c["keys"], c["queries"] // 2)],
+                        rng.integers(0, c["key_space"], c["queries"] // 2,
+                                     dtype=np.uint32)])
+    lo = rng.integers(0, c["key_space"] - c["span"], c["ranges"],
+                      dtype=np.uint32)
+    reads = OpBatch.concat([OpBatch.queries(q),
+                            OpBatch.ranges(lo, lo + np.uint32(c["span"]))])
+    res = {f: t._launched(lambda t=t: t.engine.apply(reads))
+           for f, t in tallies.items()}
+    n_ranges = oracle.check(reads, res[True], OpKind)
+    for field in ("found", "values", "range_truncated"):
+        assert np.array_equal(getattr(res[True], field),
+                              getattr(res[False], field)), field
+    for a, b in zip(res[True].range_hits, res[False].range_hits):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert all(np.array_equal(x, y) for x, y in zip(a, b))
+    log(f"  {len(q)} point queries and {n_ranges} ranges of {c['span']} "
+        "keys: equal on both paths and == oracle")
+
+    for f, t in tallies.items():
+        log(t.line("fused" if f else "eager", n_ops))
+    from repro_torch.kernels import ops
+    launches = {k: tallies[False].launches[k] for k in ops.launch_counts()}
+    if launches["merge_sorted_batch"]:
+        raise AssertionError("the eager path launched merge_sorted_batch")
+    for name_k in EAGER_KERNELS:
+        if not launches[name_k]:
+            raise AssertionError(f"{name_k} never launched on the eager path")
+    return launches
 
 
 # ------------------------------------------------------------------ phase 4
@@ -4175,6 +4393,12 @@ def main() -> int:
     paths = {}
     paths["nbtree"], nbtree_stats = phase_main_path(dev, args)
     log("launches on the NB-tree path: " + json.dumps(paths["nbtree"]))
+    log("phase 3b: the eager write path (fused=False) beside the fused one, "
+        "one stream into both, bit for bit")
+    t3b = time.perf_counter()
+    paths["eager"] = phase_eager(dev)
+    log(f"launches on the eager path: {json.dumps(paths['eager'])}; phase 3b "
+        f"took {time.perf_counter() - t3b:.1f} s")
     log("phase 4: qwen3-8b served at full width through the paged-KV engine")
     paths["serve"] = phase_serve(dev, args)
     log("phase 5: engine vs contiguous decode, exact tokens")
@@ -4241,7 +4465,8 @@ def main() -> int:
                                    if c.get(name_k)}
         if not row["launches"]:
             raise AssertionError(f"{name_k} never launched on the {path} path")
-    for path, names in (("archs", ARCH_KERNELS), ("variants", ARCH_KERNELS),
+    for path, names in (("eager", EAGER_KERNELS),
+                        ("archs", ARCH_KERNELS), ("variants", ARCH_KERNELS),
                         ("ingest", INGEST_KERNELS),
                         ("tenancy", TENANCY_KERNELS)):
         for name_k in names:

@@ -513,6 +513,9 @@ class TorchNBTreeEngine(StorageEngine):
     as one group, so such a pad would reach one child as a duplicate group
     larger than any run may take; the JAX engine, which pads it, fails
     there.  Every group of at most ``sigma`` ops is padded as in JAX.
+    Other keywords go to :class:`NBTreeIndex` (``device``, ``fused``, ...):
+    ``make_engine("torch-nbtree", fused=False)`` serves on the eager write
+    path.
     """
 
     name = "torch-nbtree"

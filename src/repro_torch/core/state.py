@@ -51,8 +51,11 @@ def index_from_reference(tables: dict, tree: dict, **cfg) -> NBTreeIndex:
     """A port ``NBTreeIndex`` holding exported state.
 
     ``cfg`` is the index configuration (``f``, ``sigma``, ``bits_per_key``,
-    ``num_hashes``, ``max_levels``, ``device``); ``max_nodes`` comes from
-    the tables.  Raises if the tables do not fit that configuration.
+    ``num_hashes``, ``max_levels``, ``fused``, ``device``); ``max_nodes``
+    comes from the tables.  Raises if the tables do not fit that
+    configuration.  The state is the same on both write paths, so an
+    eager index's state may continue on either (``fused=False`` continues
+    like the JAX eager index, dispatch for dispatch).
     """
     max_nodes = int(tables["run_keys"].shape[0])
     idx = NBTreeIndex(max_nodes=max_nodes, **cfg)

@@ -24,6 +24,14 @@ is still one impl call (``dispatch_count``).  Where JAX donated the node
 tables to a jitted impl, the impls here write into the preallocated tables
 in place; only ``_grow_impl`` allocates new ones.
 
+``fused=False`` keeps the JAX index's pre-fusion eager write path as the
+differential-test oracle and the ingest benchmark's baseline: the same
+host control plane and tables, but every step its own dispatch (row
+writes, count sets, full Bloom rebuilds, one ``merge_sorted`` launch per
+non-empty child) with host-synced ``searchsorted`` cuts between them, so
+``dispatch_count`` per insert batch and per maintain unit equals the JAX
+eager index's.  Both paths leave bit-identical tables.
+
 Keys, pivots and Bloom words are int64 tensors holding uint32 values
 (``kernels/ref.py``); values are int32 and ``TOMBSTONE32`` realizes
 delta-record deletions (paper Sec. 3.2.2).  All seven tables stay bit-
@@ -81,6 +89,13 @@ class _HostNode:
 
 
 # ------------------------------------------------------------------ helpers
+def _write_row(table, row: int, data) -> None:
+    """``table[row] = data`` in place: one dispatch of the eager path (JAX
+    donates the table to a jitted ``.at[row].set``; its eager count and
+    structure sets, un-jitted ``.at[row].set`` calls, go through here too)."""
+    table[row] = data
+
+
 def _prepare_batch(keys, vals):
     """Sort an incoming batch newest-copy-first: reverse, then a stable sort
     (a stable sort keeps earlier, older duplicates first)."""
@@ -98,6 +113,11 @@ def _window(row_k, row_v, start, length, cap: int):
             torch.where(mask, row_v[idx], 0))
 
 
+def _build_bloom(keys, nbits: int, h: int):
+    """A run's filter from scratch (the eager path rebuilds on each write)."""
+    return ops.bloom_build(keys, nbits, h)
+
+
 def _compact_rows(keys, vals, cap: int):
     """Leaf-level delta resolution (Sec. 3.2.2), per row: dedup, then drop
     deletes.  Stale duplicates retire together with the tombstone (dropping
@@ -112,6 +132,11 @@ def _compact_rows(keys, vals, cap: int):
     vals = torch.gather(vals, -1, order)
     live = (keys != KEY_MAX32).sum(-1)
     return keys[..., :cap], vals[..., :cap], live
+
+
+#: the eager path's leaf compaction of one merged row (JAX jits the same
+#: function under this name)
+_compact_tombstones = _compact_rows
 
 
 # -------------------------------------------------------------------- impls
@@ -328,11 +353,14 @@ class NBTreeIndex:
 
     ``device`` defaults to ``cuda`` and raises without it; ``device="cpu"``
     runs every kernel's plain PyTorch version (the tests' setting).
+    ``fused=True`` (the default) runs the one-call maintenance impls;
+    ``fused=False`` the JAX index's pre-fusion eager write path: the same
+    state, ~25x the dispatches per flush.
     """
 
     def __init__(self, f: int = 4, sigma: int = 4096, *, bits_per_key: int = 10,
                  num_hashes: int = 3, max_nodes: int = 256, max_levels: int = 12,
-                 device=None):
+                 fused: bool = True, device=None):
         assert f >= 2 and sigma >= 2 * f
         self.device = resolve_device(device)
         self.f, self.sigma = f, sigma
@@ -341,6 +369,7 @@ class NBTreeIndex:
         self.run_cap = _round_up(f * (sigma + 1) + sigma, TILE)
         self.nbits = _round_up(self.run_cap * bits_per_key, 32 * 128)
         self.max_levels = max_levels
+        self._fused = bool(fused)
 
         self.max_nodes = max_nodes
         nw = self.nbits // 32
@@ -448,12 +477,28 @@ class NBTreeIndex:
             return
         self._insert_chunk(keys, vals)
 
+    def _device_int(self, i: int) -> torch.Tensor:
+        """A host int as a 0-d device tensor (an eager window's bound)."""
+        return torch.tensor(i, device=self.device)
+
     def _insert_chunk(self, keys, vals) -> None:
         n = int(keys.shape[0])
-        self._dispatch(_insert_impl, self.run_keys, self.run_vals,
-                       self.run_count, self.bloom, keys, vals,
-                       run_cap=self.run_cap, nbits=self.nbits, h=self.h)
-        self.root.count += n
+        if self._fused:
+            self._dispatch(_insert_impl, self.run_keys, self.run_vals,
+                           self.run_count, self.bloom, keys, vals,
+                           run_cap=self.run_cap, nbits=self.nbits, h=self.h)
+            self.root.count += n
+        else:
+            bk, bv = self._dispatch(_prepare_batch, keys, vals)
+            mk, mv = self._dispatch(ops.merge_sorted, bk, bv,
+                                    self.run_keys[0, : self.run_cap],
+                                    self.run_vals[0])
+            self._dispatch(_write_row, self.run_keys, 0, mk[: self.run_cap])
+            self._dispatch(_write_row, self.run_vals, 0, mv[: self.run_cap])
+            self.root.count += n
+            self._dispatch(_write_row, self.run_count, 0, self.root.count)
+            self._dispatch(_write_row, self.bloom, 0, self._dispatch(
+                _build_bloom, self.run_keys[0], self.nbits, self.h))
         assert self.root.count <= self.run_cap, "root run overflow: call maintain()"
         self.n_items += n
         if self.root.count > self.sigma and self.root.nid not in self._pending_n:
@@ -536,7 +581,8 @@ class NBTreeIndex:
 
         The deamortization knob: a serving loop calls ``maintain(k)`` once
         per step, so index upkeep never stalls a step for more than k
-        units.  A flush unit is ONE impl call (plus its count read).
+        units.  On the fused path a flush unit is ONE impl call (plus its
+        count read).
         """
         units = 0
         while self._pending and units < max_units:
@@ -625,6 +671,12 @@ class NBTreeIndex:
 
     def _flush(self, node: _HostNode) -> None:
         """Stream-merge the first sigma live pairs into the children."""
+        if self._fused:
+            self._flush_fused(node)
+        else:
+            self._flush_eager(node)
+
+    def _flush_fused(self, node: _HostNode) -> None:
         nc = len(node.children)
         counts = self._dispatch(
             _flush_impl, self.run_keys, self.run_vals, self.run_count,
@@ -639,6 +691,63 @@ class NBTreeIndex:
             child.count = int(c)
             assert child.count <= self.run_cap, "child run overflow"
         node.count = int(counts[-1])
+
+    def _flush_eager(self, node: _HostNode) -> None:
+        """Pre-fusion write path: ~25 dispatches and host syncs per flush."""
+        nid = node.nid
+        moved = min(node.count, self.sigma)
+        row_k, row_v = self.run_keys[nid], self.run_vals[nid]
+        if moved < node.count:
+            # never split a duplicate group across the moved boundary (see
+            # _flush_partition)
+            k_cut = self._keys([int(row_k[moved])])
+            left = int(self._dispatch(torch.searchsorted, row_k, k_cut))
+            if left > 0:
+                moved = min(left, moved)
+            else:
+                moved = min(int(self._dispatch(torch.searchsorted, row_k,
+                                               k_cut, right=True)),
+                            node.count)
+        piv = self._keys([int(k) for k in node.skeys])
+        cuts = self._dispatch(torch.searchsorted, row_k, piv)
+        bounds = [0, *cuts.clamp(max=moved).tolist(), moved]
+        for i, child in enumerate(node.children):
+            lo, hi = bounds[i], bounds[i + 1]
+            if hi <= lo:
+                continue
+            part_k, part_v = self._dispatch(_window, row_k, row_v,
+                                            self._device_int(lo),
+                                            self._device_int(hi - lo),
+                                            self.sigma_pad)
+            mk, mv = self._dispatch(ops.merge_sorted, part_k, part_v,
+                                    self.run_keys[child.nid],
+                                    self.run_vals[child.nid])
+            new_count = child.count + (hi - lo)
+            if child.is_leaf:
+                mk, mv, live = self._dispatch(_compact_tombstones, mk, mv,
+                                              self.run_cap)
+                new_count = int(live)
+            else:
+                mk, mv = mk[: self.run_cap], mv[: self.run_cap]
+            assert new_count <= self.run_cap, "child run overflow"
+            self._dispatch(_write_row, self.run_keys, child.nid, mk)
+            self._dispatch(_write_row, self.run_vals, child.nid, mv)
+            child.count = new_count
+            self._dispatch(_write_row, self.run_count, child.nid, new_count)
+            self._dispatch(_write_row, self.bloom, child.nid, self._dispatch(
+                _build_bloom, mk, self.nbits, self.h))
+        # the paper advances a lazy watermark; a device row rewrite is a
+        # stream copy, so the parent is compacted at once (DESIGN.md §2).
+        rest = node.count - moved
+        rk, rv = self._dispatch(_window, row_k, row_v,
+                                self._device_int(moved),
+                                self._device_int(rest), self.run_cap)
+        self._dispatch(_write_row, self.run_keys, nid, rk)
+        self._dispatch(_write_row, self.run_vals, nid, rv)
+        node.count = rest
+        self._dispatch(_write_row, self.run_count, nid, rest)
+        self._dispatch(_write_row, self.bloom, nid, self._dispatch(
+            _build_bloom, rk, self.nbits, self.h))
 
     def _split_root_leaf(self) -> None:
         """First split: the root leaf becomes a root with two leaf children."""
@@ -703,19 +812,44 @@ class NBTreeIndex:
         return k_m
 
     def _split_run(self, node, left, right, at_key: int | None = None) -> int:
-        has_key = at_key is not None
-        out = self._dispatch(
-            _split_impl, self.run_keys, self.run_vals, self.run_count,
-            self.bloom, node.nid, left.nid, right.nid, node.count,
-            int(at_key) if has_key else 0, has_key=has_key,
-            run_cap=self.run_cap, nbits=self.nbits, h=self.h)
-        k_m, cut = out.tolist()           # the split's one device->host sync
-        left.count, right.count = cut, node.count - cut
+        if self._fused:
+            has_key = at_key is not None
+            out = self._dispatch(
+                _split_impl, self.run_keys, self.run_vals, self.run_count,
+                self.bloom, node.nid, left.nid, right.nid, node.count,
+                int(at_key) if has_key else 0, has_key=has_key,
+                run_cap=self.run_cap, nbits=self.nbits, h=self.h)
+            k_m, cut = out.tolist()       # the split's one device->host sync
+            left.count, right.count = cut, node.count - cut
+            return k_m
+        row_k, row_v = self.run_keys[node.nid], self.run_vals[node.nid]
+        k_m = int(row_k[node.count // 2]) if at_key is None else int(at_key)
+        cut = int(self._dispatch(torch.searchsorted, row_k,
+                                 self._keys([k_m])))
+        if at_key is not None:
+            cut = min(cut, node.count)
+        for dst, lo, ln in ((left, 0, cut), (right, cut, node.count - cut)):
+            dk, dv = self._dispatch(_window, row_k, row_v,
+                                    self._device_int(lo),
+                                    self._device_int(ln), self.run_cap)
+            self._dispatch(_write_row, self.run_keys, dst.nid, dk)
+            self._dispatch(_write_row, self.run_vals, dst.nid, dv)
+            dst.count = ln
+            self._dispatch(_write_row, self.run_count, dst.nid, ln)
+            self._dispatch(_write_row, self.bloom, dst.nid, self._dispatch(
+                _build_bloom, dk, self.nbits, self.h))
         return k_m
 
     def _clear_run(self, node) -> None:
-        self._dispatch(_clear_impl, self.run_keys, self.run_vals,
-                       self.run_count, self.bloom, node.nid)
+        nid = node.nid
+        if self._fused:
+            self._dispatch(_clear_impl, self.run_keys, self.run_vals,
+                           self.run_count, self.bloom, nid)
+        else:
+            self._dispatch(_write_row, self.run_keys, nid, KEY_MAX32)
+            self._dispatch(_write_row, self.run_vals, nid, 0)
+            self._dispatch(_write_row, self.run_count, nid, 0)
+            self._dispatch(_write_row, self.bloom, nid, 0)
         node.count = 0
 
     def _sync_structure(self, node: _HostNode) -> None:
@@ -726,10 +860,16 @@ class NBTreeIndex:
             pv[i] = int(k)
         for i, c in enumerate(node.children[: self.f]):
             ch[i] = c.nid
-        self._dispatch(_sync_impl, self.pivots, self.children, self.nchild,
-                       node.nid, torch.from_numpy(pv).to(self.device),
-                       torch.from_numpy(ch).to(self.device),
-                       len(node.children))
+        pv = torch.from_numpy(pv).to(self.device)
+        ch = torch.from_numpy(ch).to(self.device)
+        if self._fused:
+            self._dispatch(_sync_impl, self.pivots, self.children,
+                           self.nchild, node.nid, pv, ch, len(node.children))
+        else:
+            self._dispatch(_write_row, self.pivots, node.nid, pv)
+            self._dispatch(_write_row, self.children, node.nid, ch)
+            self._dispatch(_write_row, self.nchild, node.nid,
+                           len(node.children))
 
     # ------------------------------------------------------------- invariants
     def check_invariants(self) -> None:

@@ -23,7 +23,8 @@ JAX package's layout (its ``repro/workloads/driver.py``).
 CLI (``torch-nbtree`` on the card by default; ``--device cpu`` runs the
 plain versions; ``--engines all`` is :data:`FIVE_TIERS`; ``--shards N``
 wraps each engine as ``sharded:<name>``; repeat ``--mix`` for one stream
-per tenant; ``--replicas R`` replicates each range partition)::
+per tenant; ``--replicas R`` replicates each range partition;
+``--list-engines`` / ``--list-mixes`` print the registry and the mixes)::
 
     PYTHONPATH=src python -m repro_torch.workloads.driver \
         --mix insert-heavy --ops 65536 --out runs/x.json
@@ -317,7 +318,8 @@ def _resolve_engine_names(engines, parser: argparse.ArgumentParser) -> tuple:
     bad = [n for n in engines if n not in known]
     if bad:
         parser.error(f"unknown engine(s): {', '.join(sorted(bad))}; "
-                     f"registered: {', '.join(available_engines())}")
+                     f"registered: {', '.join(available_engines())} "
+                     "(--list-engines to enumerate)")
     return tuple(engines)
 
 
@@ -382,7 +384,11 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--engines", nargs="+", default=["torch-nbtree"],
                     help="engine names, or 'all' for the five paper tiers "
-                         f"({', '.join(FIVE_TIERS)})")
+                         f"({', '.join(FIVE_TIERS)}); see --list-engines")
+    ap.add_argument("--list-engines", action="store_true",
+                    help="print the registered engine names and exit")
+    ap.add_argument("--list-mixes", action="store_true",
+                    help="print the named workload mixes and exit")
     ap.add_argument("--mix", action="append", choices=sorted(MIXES),
                     help="workload mix; repeat for one stream per tenant "
                          "(multi-stream mode). Default: insert-heavy")
@@ -442,6 +448,16 @@ def main(argv=None) -> None:
                     help="write the JSON report here (one engine: its "
                          "report; several: a list under 'reports')")
     args = ap.parse_args(argv)
+    if args.list_engines:
+        for name in available_engines():
+            print(name)
+        print("sharded:<base>  (any of the above via --shards N)")
+        return
+    if args.list_mixes:
+        for name in sorted(MIXES):
+            kinds = {OpKind(k).name.lower(): p for k, p in MIXES[name].items()}
+            print(f"{name}: {kinds}")
+        return
     if not args.arrival and (args.chaos or args.trace or args.replicas
                              or args.metrics_window is not None):
         ap.error("--chaos/--trace/--metrics-window/--replicas need open-loop "

@@ -402,6 +402,23 @@ def test_driver_cli_on_cpu(tmp_path):
     assert rep["stats"]["pending_debt"] == 0
 
 
+@pytest.mark.parametrize("flag", ["--list-mixes", "--list-engines"])
+def test_driver_lists_match_jax(capsys, flag):
+    """The listing flags print the JAX driver's lines: the mixes exactly,
+    the engines with ``torch-nbtree`` in place of ``jax-nbtree``."""
+    from repro.workloads.driver import main as jax_driver_main
+    assert driver_main([flag]) is None
+    ours = capsys.readouterr().out.splitlines()
+    jax_driver_main([flag])
+    theirs = capsys.readouterr().out.splitlines()
+    if flag == "--list-engines":
+        theirs = sorted(n.replace("jax-nbtree", "torch-nbtree")
+                        for n in theirs)
+        ours = sorted(ours)
+        assert "torch-nbtree" in ours
+    assert ours == theirs and len(ours) > 5
+
+
 def _imports(path: Path):
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
