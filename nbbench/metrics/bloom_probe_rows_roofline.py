@@ -1,0 +1,9 @@
+"""bloom_probe_rows_roofline, in percent: the descent's Bloom probes.
+
+Least time (the larger of bytes over HBM bandwidth and ops over the integer
+rate, from each launch's live counts) over the kernel's device time."""
+from nbbench.roofline_share import roofline_share
+
+
+def read(obs):
+    return roofline_share(obs, "bloom_probe_rows")
