@@ -129,9 +129,9 @@ network)::
    prints each cell's per-rank GB, whether it fits in 80 GB and the three
    roofline terms; the prefill and decode cells count the sharded
    serving steps' plan (``dryrun.SERVING_PLAN``, run in phase 13).  11d:
-   ``roofline.analysis.measured_kernel_table`` over phase 2's
-   ``dispatch_stats``; prints each impl's calls and host time only (the
-   stats time the host's enqueue, so they bound no device rate).  Sharded steps
+   ``roofline.analysis.measured_kernel_table`` over the totals of phase
+   2's ``dispatch`` spans; prints each impl's calls and host time only
+   (the spans time the host's enqueue, so they bound no device rate).  Sharded steps
    over two or more ranks need a card a rank: the CPU tests run them over
    ``gloo`` (``tests/test_torch_distributed.py``).
 12. (Runs after phase 11.)  The sharded step split over ``"model"``
@@ -1564,10 +1564,19 @@ class Oracle:
 
 
 class _DispatchTally:
-    """Tracer stand-in: the index then keeps per-impl dispatch counts."""
+    """Tracer stand-in that keeps only the totals of the index's
+    ``dispatch`` spans: ``stats``, impl name -> ``{count, wall_s, bytes}``
+    (``bytes`` 0: a span counts no traffic)."""
 
-    def complete(self, *args, **kwargs):
-        pass
+    def __init__(self):
+        self.stats = {}
+
+    def complete(self, cat, name, t0_s, dur_s, **args):
+        if cat == "dispatch":
+            st = self.stats.setdefault(name,
+                                       {"count": 0, "wall_s": 0.0, "bytes": 0})
+            st["count"] += 1
+            st["wall_s"] += dur_s
 
     def instant(self, *args, **kwargs):
         pass
@@ -1646,8 +1655,8 @@ def run_mix(engine, workload, oracle, OpKind, label):
 
 
 def phase_main_path(dev, args):
-    """Phases 2-3; returns (their kernel launches, the index's
-    ``dispatch_stats``: impl name -> {count, wall_s, bytes})."""
+    """Phases 2-3; returns (their kernel launches, the totals of the
+    index's dispatch spans: impl name -> {count, wall_s, bytes})."""
     from repro_torch.core.engine_api import OpBatch, OpKind, TorchNBTreeEngine
     from repro_torch.core.splitmix import splitmix64
     from repro_torch.kernels import ops
@@ -1660,7 +1669,8 @@ def phase_main_path(dev, args):
                                max_results=128, device=dev)
     idx = engine.idx
     assert (idx.run_cap, idx.nbits) == (RUN_CAP, NW * 32)
-    idx.attach_tracer(_DispatchTally())
+    tally = _DispatchTally()
+    idx.attach_tracer(tally)
     flushes = [0, 0]                       # flush units, their dispatches
     plain_flush = idx._flush
 
@@ -1725,7 +1735,7 @@ def phase_main_path(dev, args):
     assert np.array_equal(keys, oracle.keys) and np.array_equal(vals, oracle.vals), \
         "final live table != oracle"
     st = engine.stats()
-    ds = idx.dispatch_stats
+    ds = tally.stats
     log(f"  final live table == oracle ({len(keys)} pairs); height "
         f"{st.height}; node tables {idx.table_bytes()} bytes "
         f"({idx.max_nodes} rows x {idx.run_cap} slots)")
@@ -3209,11 +3219,11 @@ def phase_sharded(dev, args, nbtree_stats, cfg=None) -> dict:
                                  peak_bw=card_rates()["hbm_bw"])
     if not rows:
         raise AssertionError("11d: phase 2 recorded no dispatch stats")
-    # dispatch_stats time the host's enqueue of each impl call and count
-    # whole tables as its bytes, so a rate or a share of the HBM peak
-    # taken from them bounds neither the device's time nor its traffic:
-    # only the calls and their host time are printed
-    log("  11d: measured_kernel_table over phase 2's dispatch_stats (calls "
+    # dispatch spans time the host's enqueue of each impl call and count
+    # no bytes, so a rate or a share of the HBM peak taken from them
+    # bounds neither the device's time nor its traffic: only the calls and
+    # their host time are printed
+    log("  11d: measured_kernel_table over phase 2's dispatch spans (calls "
         "and the host's clock around each impl call; no rates):")
     for r in rows:
         log(f"    {r['kernel']}: {r['count']} calls, {r['wall_s']:.6f} s")
@@ -4098,10 +4108,11 @@ def phase_tenancy_ingest(dev) -> None:
         prof = profile(activities=[ProfilerActivity.CUDA])
         window = [0.0, 0.0]
         real_apply, real_maintain = eng.apply, eng.maintain
+        tally = _DispatchTally()
 
         def counted_apply(batch):
             if fe.preload_wall_s and not calls["commits"]:
-                eng.attach_tracer(_DispatchTally())    # per-impl wall times
+                eng.attach_tracer(tally)    # per-impl wall times
             d0 = impl_calls(eng)
             res = real_apply(batch)
             if fe.preload_wall_s:
@@ -4165,11 +4176,8 @@ def phase_tenancy_ingest(dev) -> None:
             f"(apply {calls['apply'] / calls['commits']:.3f}, maintain(1) "
             f"{calls['maintain'] / calls['commits']:.3f}); "
             f"{eng.n_splits} splits")
-        per_impl = collections.defaultdict(lambda: [0, 0.0])
-        for e in eng.shard_engines:
-            for k, v in e.idx.dispatch_stats.items():
-                per_impl[k][0] += v["count"]
-                per_impl[k][1] += v["wall_s"]
+        per_impl = {k: (v["count"], v["wall_s"])
+                    for k, v in tally.stats.items()}
         log("  7a host time of impl calls while serving: " + "; ".join(
             f"{k} {n / calls['commits']:.3f} a commit, {w / n * 1e3:.3f} ms "
             f"a call, {w / t_serve:.3f} of serving wall"

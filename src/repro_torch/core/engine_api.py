@@ -530,7 +530,6 @@ class TorchNBTreeEngine(StorageEngine):
         # wall clock per maintenance work unit (each maintain(1) timed on
         # its own): the service cost of the emptying cascade.
         self._maintain_unit_s = LogBucketHistogram()
-        self._t_origin = time.perf_counter()
         self._tracer = None
 
     def _sync(self) -> None:
@@ -621,10 +620,11 @@ class TorchNBTreeEngine(StorageEngine):
             if self.idx.units_done > u0:   # not a stale-entry-only pop
                 self._maintain_unit_s.add(dt)
                 if self._tracer is not None:
+                    kind, depth = self.idx.last_unit
                     self._tracer.complete(
-                        "flush_unit", "maintain_unit",
-                        t0 - self._t_origin, dt,
-                        unit=int(self.idx.units_done))
+                        "flush_unit", "maintain_unit", t0, dt,
+                        unit=int(self.idx.units_done), kind=kind,
+                        depth=depth)
         return pending
 
     # ------------------------------------------------------------------- stats
@@ -666,10 +666,11 @@ class TorchNBTreeEngine(StorageEngine):
         return self.idx.height
 
     def attach_tracer(self, tracer) -> None:
-        """Per-dispatch spans from the index's funnel, flush-unit spans from
-        :meth:`maintain`, on this engine's wall clock."""
+        """Per-dispatch and backpressure-unit spans from the index,
+        flush-unit spans (with the unit's kind and depth) from
+        :meth:`maintain`; all in ``time.perf_counter()`` seconds."""
         self._tracer = tracer
-        self.idx.attach_tracer(tracer, t_origin=self._t_origin)
+        self.idx.attach_tracer(tracer)
 
     def stats(self) -> EngineStats:
         mu = self._maintain_unit_s

@@ -60,13 +60,6 @@ def _device_call(fn, *args, **kwargs):
     return fn(*args, **kwargs)
 
 
-def _tree_nbytes(x) -> int:
-    """Total tensor bytes in a (possibly nested) dispatch input/output."""
-    if isinstance(x, (tuple, list)):
-        return sum(_tree_nbytes(e) for e in x)
-    return int(getattr(x, "nbytes", 0))
-
-
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
@@ -400,38 +393,38 @@ class NBTreeIndex:
         self.bloom_false_positives = 0
         #: impl calls issued by THIS index (``EngineStats.device_dispatches``).
         self.dispatch_count = 0
-        #: per-impl totals ``{name: {count, wall_s, bytes}}``, populated only
-        #: while a tracer is attached.
-        self.dispatch_stats: dict = {}
+        #: ``(kind, depth)`` of the last unit run, ``kind`` "flush" or
+        #: "split", ``depth`` its node's (the root's 0); kept only while a
+        #: tracer is attached (the engine's ``flush_unit`` spans carry it)
+        self.last_unit: tuple | None = None
         self._tracer = None
-        self._t_origin = 0.0
 
     # ------------------------------------------------------------ dispatch
-    def attach_tracer(self, tracer, *, t_origin: float | None = None) -> None:
-        """Record per-dispatch wall spans (category ``dispatch``, via
-        ``tracer.complete``) and per-impl timing/byte totals.  The spans
-        time the host call: kernels run asynchronously on the card, so a
-        span ends when the impl has enqueued its work or read its result."""
+    def attach_tracer(self, tracer) -> None:
+        """Record a ``dispatch`` span for every device call and a
+        ``cascade`` span named ``backpressure_unit`` for every unit
+        ``insert_batch`` runs under backpressure, stamped in
+        ``time.perf_counter()`` seconds.  A dispatch span times the host
+        call: kernels run asynchronously on the card, so it ends when the
+        impl has enqueued its work or read its result."""
         self._tracer = tracer
-        self._t_origin = (time.perf_counter() if t_origin is None
-                          else t_origin)
 
     def _dispatch(self, fn, *args, **kwargs):
         """Per-instance shim over :func:`_device_call`: counting is always
-        on; timing and span emission only while a tracer is attached."""
+        on; a span only while a tracer is attached."""
         self.dispatch_count += 1
+        return self._call(fn, *args, **kwargs)
+
+    def _call(self, fn, *args, **kwargs):
+        """:func:`_device_call`, timed into a ``dispatch`` span while a
+        tracer is attached; counts nothing."""
         if self._tracer is None:
             return _device_call(fn, *args, **kwargs)
-        name = getattr(fn, "__name__", None) or repr(fn)
         t0 = time.perf_counter()
         out = _device_call(fn, *args, **kwargs)
-        dt = time.perf_counter() - t0
-        st = self.dispatch_stats.setdefault(
-            name, {"count": 0, "wall_s": 0.0, "bytes": 0})
-        st["count"] += 1
-        st["wall_s"] += dt
-        st["bytes"] += _tree_nbytes(args) + _tree_nbytes(out)
-        self._tracer.complete("dispatch", name, t0 - self._t_origin, dt)
+        self._tracer.complete("dispatch",
+                              getattr(fn, "__name__", None) or repr(fn), t0,
+                              time.perf_counter() - t0)
         return out
 
     def _keys(self, keys) -> torch.Tensor:
@@ -471,7 +464,8 @@ class NBTreeIndex:
         if self.root.count + n > self.run_cap or n > self.sigma:
             for i in range(0, n, self.sigma):
                 while self.root.count + self.sigma > self.run_cap:
-                    if self.maintain(4) == 0 and self.root.count + self.sigma > self.run_cap:
+                    if (self._maintain(4, backpressure=True) == 0
+                            and self.root.count + self.sigma > self.run_cap):
                         break  # tree fully maintained; capacity guaranteed
                 self._insert_chunk(keys[i:i + self.sigma], vals[i:i + self.sigma])
             return
@@ -584,12 +578,26 @@ class NBTreeIndex:
         units.  On the fused path a flush unit is ONE impl call (plus its
         count read).
         """
+        return self._maintain(max_units)
+
+    def _maintain(self, max_units: int, backpressure: bool = False) -> int:
+        """:meth:`maintain`; the units of the insert path's ``backpressure``
+        are also ``cascade`` spans named ``backpressure_unit`` while a
+        tracer is attached, with the unit's kind and depth."""
         units = 0
         while self._pending and units < max_units:
             node = self._dequeue()
             if node.count <= self.sigma:
                 continue
+            if not backpressure or self._tracer is None:
+                units += self._handle_full(node)
+                continue
+            t0 = time.perf_counter()
             units += self._handle_full(node)
+            kind, depth = self.last_unit
+            self._tracer.complete("cascade", "backpressure_unit", t0,
+                                  time.perf_counter() - t0, kind=kind,
+                                  depth=depth)
         return len(self._pending)
 
     def drain(self) -> None:
@@ -611,6 +619,11 @@ class NBTreeIndex:
             self._enqueue(node, front=True)
             node = child
         self.units_done += 1
+        if self._tracer is not None:
+            depth, up = 0, node.parent
+            while up is not None:
+                depth, up = depth + 1, up.parent
+            self.last_unit = ("split" if node.is_leaf else "flush", depth)
         if node.is_leaf:
             if node is self.root:
                 self._split_root_leaf()
@@ -640,13 +653,14 @@ class NBTreeIndex:
         copies fill the head of the run: that group moves whole, and this
         check does not see it), so only a child within ``sigma`` of
         ``run_cap`` can overflow, and the shares are read from the device
-        only then, outside the dispatch funnel (the JAX index makes no such
-        read; dispatch counts stay comparable).  Wherever the JAX index
-        does not overflow, the port's tables stay bit-identical to it.
+        only then, uncounted by ``dispatch_count`` (the JAX index makes no
+        such read; dispatch counts stay comparable), though a ``dispatch``
+        span while traced.  Wherever the JAX index does not overflow, the
+        port's tables stay bit-identical to it.
         """
         if all(c.count + self.sigma <= self.run_cap for c in node.children):
             return None
-        lens = _device_call(
+        lens = self._call(
             _flush_lens, self.run_keys, node.nid,
             self._keys([int(k) for k in node.skeys]), node.count,
             sigma=self.sigma, run_cap=self.run_cap).tolist()

@@ -13,7 +13,11 @@ The tracer is clock-agnostic: callers pass explicit timestamps in
 *seconds* on whichever clock owns the component (sim seconds in the
 ingest frontends, wall seconds in the device engine), so sim-tier traces
 are byte-deterministic.  There is no global "now" — determinism would die
-the moment a span implicitly read ``time.time()``.
+the moment a span implicitly read ``time.time()``.  The wall tier's
+emitters (the device index's ``dispatch`` and ``backpressure_unit``
+spans, its engine's ``flush_unit`` spans, a wall-clock ensemble's
+``shard_split`` spans) all stamp ``time.perf_counter()`` seconds with no
+origin of their own: one host clock, the one a device trace is tied to.
 
 Span categories are a closed vocabulary (:data:`SPAN_CATEGORIES`) so the
 stall attributor and trace consumers can rely on the set.
@@ -30,8 +34,10 @@ SPAN_CATEGORIES = (
     "commit",          # group-commit service (admission -> applied)
     "wal_fsync",       # WAL append + fsync barrier
     "flush_unit",      # one device-side maintenance unit (flush/split)
-    "cascade",         # emptying-cascade maintenance budget within a step
-    "shard_split",     # ensemble shard split (instant)
+    "cascade",         # emptying-cascade maintenance budget within a step;
+                       # a unit the device index's insert backpressure runs
+    "shard_split",     # ensemble shard split (instant on sim tiers; a span
+                       # with its drain/extract/re-insert seconds on wall)
     "checkpoint",      # LSN-keyed snapshot write
     "recovery",        # WAL replay at startup
     "shed",            # admission-queue overflow drop (instant)

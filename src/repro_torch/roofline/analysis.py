@@ -19,7 +19,7 @@ factors:
 A group whose ranks span more than one node (``gpus_per_node``
 consecutive ranks of the planned card, ``hardware.PLANNED``) is charged to the network, one inside a node to
 NVLink.  ``measured_kernel_table`` is the empirical side: achieved bytes/s
-of the NB-tree's impl calls from their ``dispatch_stats``.
+of the NB-tree's impl calls from per-impl totals of their calls.
 """
 from __future__ import annotations
 
@@ -159,20 +159,20 @@ def analyze_from(*, flops: float, hbm_bytes: float, nvlink_bytes: float,
                     peak_mem, by_kind)
 
 
-def measured_kernel_table(dispatch_stats: dict, *,
+def measured_kernel_table(impl_stats: dict, *,
                           peak_bw: float = hw.H100[hw.PLANNED]["hbm_bw"]
                           ) -> list:
-    """Measured per-impl achieved bandwidth from dispatch stats.
+    """Measured per-impl achieved bandwidth from per-impl call totals.
 
-    ``dispatch_stats`` is ``NBTreeIndex.dispatch_stats`` (populated while
-    a tracer is attached): impl name -> ``{count, wall_s, bytes}``, with
-    ``bytes`` the argument + result footprint of each call (a lower bound
-    on its HBM traffic) and ``wall_s`` the host's clock around it.  Each
+    ``impl_stats``: impl name -> ``{count, wall_s, bytes}``, the totals
+    of its calls (e.g. summed from ``NBTreeIndex``'s ``dispatch`` spans,
+    whose durations are the host's clock around each call), ``bytes`` the
+    HBM traffic the caller counts for them (0 where it counts none).  Each
     row adds the achieved GB/s and its share of ``peak_bw`` (default: the
     H100 SXM's HBM rate), sorted by total wall time.
     """
     rows = []
-    for name, st in dispatch_stats.items():
+    for name, st in impl_stats.items():
         wall = float(st.get("wall_s", 0.0))
         nbytes = float(st.get("bytes", 0.0))
         bw = nbytes / wall if wall > 0 else 0.0

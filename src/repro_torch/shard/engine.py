@@ -44,6 +44,8 @@ Semantics and structure:
 """
 from __future__ import annotations
 
+import time
+
 import numpy as np
 
 from ..core.engine_api import (EngineStats, OpBatch, OpKind, OpResult,
@@ -100,10 +102,14 @@ class ShardedEngine(StorageEngine):
     # ------------------------------------------------------------ observability
     def attach_tracer(self, tracer) -> None:
         """Forward the tracer to every shard (current and future) and emit
-        ensemble-level events: one ``shard_split`` instant per rebalance
-        and a ``cascade`` debt-allocation instant whenever the scheduler
-        hands out budget.  Event timestamps are the ensemble's *charged*
-        I/O seconds — deterministic on sim tiers, and monotone."""
+        ensemble-level events.  On sim tiers: one ``shard_split`` instant
+        per rebalance and a ``cascade`` debt-allocation instant whenever
+        the scheduler hands out budget, stamped with the ensemble's
+        *charged* I/O seconds (deterministic, monotone, the JAX package's
+        events).  On the wall clock: one complete ``shard_split`` span per
+        rebalance in ``time.perf_counter()`` seconds, the clock of the
+        shards' own spans, with its parts' seconds (``drain_s``,
+        ``extract_s``, ``reinsert_s``)."""
         self._tracer = tracer
         for e in self._engines:
             e.attach_tracer(tracer)
@@ -222,7 +228,7 @@ class ShardedEngine(StorageEngine):
         budget = int(budget)
         slow = self._straggle.stragglers() if self._straggle else ()
         alloc = self._sched.allocate(self._debts, budget, stragglers=slow)
-        if self._tracer is not None and sum(alloc) > 0:
+        if self._tracer is not None and self.clock == "sim" and sum(alloc):
             self._tracer.instant("cascade", "debt_alloc", self.io_time_s(),
                                  debts=list(self._debts), alloc=list(alloc),
                                  stragglers=list(slow))
@@ -265,7 +271,13 @@ class ShardedEngine(StorageEngine):
     def _split_shard(self, sid: int) -> bool:
         """Cut shard ``sid`` at its median live key into two fresh shards."""
         eng = self._engines[sid]
+        # a traced wall-clock split: perf_counter() at its start and at the
+        # end of its drain, extraction and re-insert
+        marks = ([time.perf_counter()]
+                 if self._tracer is not None and eng.clock != "sim" else None)
         eng.drain()
+        if marks:
+            marks.append(time.perf_counter())
         lo, hi = self.partitioner.interval(sid)
         if eng.clock == "sim":
             # one charged RANGE op, the JAX package's extraction
@@ -277,6 +289,8 @@ class ShardedEngine(StorageEngine):
                     f"extraction range scan ({len(rk)} pairs returned)")
         else:
             rk, rv = eng.dump_live_range(lo, hi)    # uncapped, vectorised
+        if marks:
+            marks.append(time.perf_counter())
         if len(rk) < 2:
             self._approx_live[sid] = len(rk)    # correct a stale trigger
             return False
@@ -302,15 +316,19 @@ class ShardedEngine(StorageEngine):
         left = rk < np.uint64(q)
         a, b = self._make_shard(), self._make_shard()
         if self._tracer is not None:
+            split = dict(shard=int(sid), pivot=int(q),
+                         left_pairs=int(left.sum()),
+                         right_pairs=int((~left).sum()),
+                         n_shards=len(self._engines) + 1)
             a.attach_tracer(self._tracer)
             b.attach_tracer(self._tracer)
-            self._tracer.instant(
-                "shard_split", "split", self.io_time_s(), shard=int(sid),
-                pivot=int(q), left_pairs=int(left.sum()),
-                right_pairs=int((~left).sum()),
-                n_shards=len(self._engines) + 1)
+            if marks is None:
+                self._tracer.instant("shard_split", "split",
+                                     self.io_time_s(), **split)
         a.apply(OpBatch.inserts(rk[left], rv[left]))
         b.apply(OpBatch.inserts(rk[~left], rv[~left]))
+        if marks:
+            marks.append(time.perf_counter())
         self.partitioner.split(sid, q)
         self._engines[sid:sid + 1] = [a, b]
         self._approx_live[sid:sid + 1] = [int(left.sum()), int((~left).sum())]
@@ -322,6 +340,12 @@ class ShardedEngine(StorageEngine):
         self._straggle = StragglerDetector(list(range(len(self._engines))),
                                            warmup=4)
         self.n_splits += 1
+        if marks:
+            t0, drained, extracted, reinserted = marks
+            self._tracer.complete(
+                "shard_split", "split", t0, time.perf_counter() - t0,
+                **split, drain_s=drained - t0, extract_s=extracted - drained,
+                reinsert_s=reinserted - extracted)
         return True
 
     # ------------------------------------------------------------------- stats
