@@ -20,7 +20,12 @@ network)::
    at its path's shapes; all but the merge are swept over the constants
    their sources fix (``SWEEPS``), each value built as a library of its
    own beside the build, and their ``nvcc -Xptxas -v`` reports are
-   printed.  Phase 3 logs the shapes of the range launches it makes.
+   printed.  The Bloom build and update (no TPU kernel: the write path's
+   filters) are held at a flush's shape (5 runs of 21,504 keys) and an
+   insert's (4,096 keys onto one filter) and on an edge sweep, and the
+   device-memory body they take past shared memory is timed at the same
+   shapes (``-DBB_MAX_SMEM=0``).  Phase 3 logs the shapes of the range
+   launches it makes.
 2. Drives the NB-tree path through the engine a user calls:
    ``TorchNBTreeEngine(f=4, sigma=4096)`` on ``cuda``; a YCSB load phase of
    ``preload = 2^24`` keys over ``key_space = 2^26``, the paper's
@@ -232,9 +237,10 @@ Kernel launch counters are zeroed just before each path (2-3, 4, the
 measured runs of 8a and 8b, 9a, 10a, 11a, 12a-12b and 12d, 13a-13b and
 13d, 6, 7) and read just after; every kernel
 must have launched on its own path (3b counts each write path's launches
-around its own calls: the eager one must launch ``merge_sorted`` and the
-three read kernels, and no ``merge_sorted_batch``; the four NB-tree
-kernels of the write side and the point reads on phase 6's too, and those and
+around its own calls: the eager one must launch ``merge_sorted``,
+``bloom_build`` and the three read kernels, and no ``merge_sorted_batch``;
+the four NB-tree kernels of the write side (both merges, the Bloom build
+and update) and the two of the point reads on phase 6's too, and those and
 ``range_scan_rows`` on phase 7's; the root merge, the search, the probe
 and ``paged_attention`` on 8a-8b's, summed as the path ``archs``, and on
 9a's, the path ``variants``).  Prints a ``kernels`` JSON line, the card's name and power limit,
@@ -287,7 +293,7 @@ KERNEL_PATH = {"paged_attention": "serve"}
 #: kernels phase 6's durable ingest path must launch (its write side and
 #: its point reads)
 INGEST_KERNELS = ("merge_sorted", "merge_sorted_batch", "sorted_search_rows",
-                  "bloom_probe_rows")
+                  "bloom_probe_rows", "bloom_build", "bloom_update")
 #: kernels phase 7's sharded multi-tenant path must launch (the write side,
 #: the reader's point reads and the scanner's ranges)
 TENANCY_KERNELS = INGEST_KERNELS + ("range_scan_rows",)
@@ -555,12 +561,14 @@ BLOOM_THREADS = (64, 128, 256)                # BP_THREADS values
 RANGE_W = (4, 8, 16)                          # RS_W values
 RANGE_WARPS = (2, 4, 8)                       # RS_WARPS values
 PA_SPLIT_CTAS = (32, 64, 128, 160, 256, 384)   # PA_SPLIT_CTAS values
+BUILD_SMEM = (0,)          # BB_MAX_SMEM values: 0 takes the device-memory body
 #: the swept constant of each kernel source, and the key of its variants
 SWEEPS = {"SS_W": ("sorted_search.cu", SEARCH_W, "search"),
           "BP_THREADS": ("bloom_filter.cu", BLOOM_THREADS, "bloom"),
           "RS_W": ("range_scan.cu", RANGE_W, "range lanes"),
           "RS_WARPS": ("range_scan.cu", RANGE_WARPS, "range warps"),
-          "PA_SPLIT_CTAS": ("paged_attention.cu", PA_SPLIT_CTAS, "attention")}
+          "PA_SPLIT_CTAS": ("paged_attention.cu", PA_SPLIT_CTAS, "attention"),
+          "BB_MAX_SMEM": ("bloom_filter.cu", BUILD_SMEM, "bloom build")}
 
 
 def variant_builds(out_dir: str) -> list:
@@ -909,6 +917,120 @@ def bloom_timings(g, dev, bloom, page_bloom, tkeys, tcounts,
         out[shape] = (warm, cold, bloom_bound_ms(sets[0][1].numel(), H))
         log(f"  bloom_probe_rows {label} Q={shape}: warm {warm:.5f} ms, cold "
             f"{cold:.5f} ms, bound {out[shape][2]:.6f} ms")
+    return out
+
+
+# ------------------------------------------------------- bloom build sweeps
+BUILD_ROWS = 5     # a flush's filters: f = 4 children and the root's rest
+INSERT_KEYS = 4096  # an insert batch, ORed onto the root's filter
+#: the most words a row built in shared memory may have (BB_MAX_SMEM / 4
+#: of bloom_filter.cu); longer rows take the device-memory body
+BUILD_SMEM_WORDS = 232_448 // 4
+
+
+def build_work(R: int, N: int, update: bool, h: int = H) -> tuple:
+    """(bytes, integer ops) of one build launch over R rows of N keys:
+    each key read once, each word written once (and read once by the
+    update); ~12 integer ops a hash."""
+    return 8 * R * N + 8 * R * NW * (2 if update else 1), R * N * h * 12
+
+
+def build_inputs(g, dev, n_sets: int = 1) -> list:
+    """``n_sets`` of (flush keys, insert words, insert keys): a flush's
+    BUILD_ROWS runs of RUN_CAP keys in the node table's layout (counts 0, 1,
+    RUN_CAP, RUN_CAP - 1 and one drawn, a KEY_MAX tail after each), and an
+    insert batch of INSERT_KEYS keys (a tenth of them KEY_MAX padding) onto
+    a built filter row."""
+    from repro_torch.kernels import ops
+
+    out = []
+    for _ in range(n_sets):
+        fk, _, _ = table_rows(g, BUILD_ROWS, dev)
+        words = ops.bloom_build(fk[4], NW * 32, H)
+        ik = torch.randint(0, KEY_MAX, (INSERT_KEYS,), generator=g, device=dev)
+        ik[-INSERT_KEYS // 10:] = KEY_MAX
+        out.append((fk, words, ik))
+    return out
+
+
+def bloom_build_edge_sweep(g, dev) -> tuple:
+    """The build and the update, bit for bit against their plain versions:
+    h = 1..6 on the flush's rows and on one run; rows of KEY_MAX alone,
+    duplicate keys, keys 0 and KEY_MAX - 1; R = 1..5; nbits 32, 4096, NW *
+    32 and one word past the rows shared memory holds (the device-memory
+    body).  The update ORs onto random words, bit 31 included."""
+    from repro_torch.kernels import bloom_filter as bf
+
+    build = lambda *a: (bf.bloom_build_cuda(*a),)          # noqa: E731
+    build_p = lambda *a: (bf.bloom_build_plain(*a),)       # noqa: E731
+    update = lambda *a: (bf.bloom_update_cuda(*a),)        # noqa: E731
+    update_p = lambda *a: (bf.bloom_update_plain(*a),)     # noqa: E731
+    err = n_checks = 0
+
+    def check(label, keys, nbits, h):
+        nonlocal err, n_checks
+        err = max(err, assert_exact(f"bloom_build {label}", build, build_p,
+                                    keys, nbits, h))
+        old = torch.randint(0, KEY_MAX + 1, (*keys.shape[:-1], nbits // 32),
+                            generator=g, device=dev)
+        err = max(err, assert_exact(f"bloom_update {label}", update, update_p,
+                                    old, keys, nbits, h))
+        n_checks += 2
+
+    keys = torch.randint(0, KEY_MAX, (BUILD_ROWS, RUN_CAP), generator=g,
+                         device=dev)
+    keys[:, :2000] = keys[:, 2000:4000]                    # duplicates
+    keys[:, 0], keys[:, 1] = 0, KEY_MAX - 1
+    keys[:, -4000:] = KEY_MAX                              # padding tail
+    keys[1] = KEY_MAX                                      # padding alone
+    run = keys[0, :INSERT_KEYS].contiguous()
+    for h in HASHES:
+        check(f"h={h} flush rows", keys, NW * 32, h)
+        check(f"h={h} one run", run, NW * 32, h)
+    for r in range(1, BUILD_ROWS + 1):
+        check(f"R={r}", keys[:r, :INSERT_KEYS].contiguous(), NW * 32, H)
+    for nbits in (32, 4096, (BUILD_SMEM_WORDS + 1) * 32):
+        check(f"nbits={nbits}", keys[:2, :INSERT_KEYS].contiguous(), nbits, H)
+        check(f"nbits={nbits} one run", run, nbits, H)
+    return err, n_checks
+
+
+def bloom_build_timings(g, dev, label: str) -> dict:
+    """The build at the flush shape and the update at the insert's, warm
+    (20 calls on one set) and cold (one call on each of more than 64 MB of
+    sets), each set checked bit for bit.  Returns {shape: (warm, cold,
+    bound) ms}."""
+    from repro_torch.kernels import bloom_filter as bf
+
+    one = build_inputs(g, dev)[0]
+    n_sets = int(COLD_BYTES // build_work(BUILD_ROWS, RUN_CAP, False)[0]) + 1
+    sets = build_inputs(g, dev, n_sets)
+    shapes = {
+        f"flush {BUILD_ROWS} x {RUN_CAP}": (
+            lambda s: bf.bloom_build_cuda(s[0], NW * 32, H),
+            lambda s: bf.bloom_build_plain(s[0], NW * 32, H),
+            build_work(BUILD_ROWS, RUN_CAP, False)),
+        f"insert {INSERT_KEYS}": (
+            lambda s: bf.bloom_update_cuda(s[1], s[2], NW * 32, H),
+            lambda s: bf.bloom_update_plain(s[1], s[2], NW * 32, H),
+            build_work(1, INSERT_KEYS, True))}
+    rates, out = card_rates(), {}
+    for shape, (fn, plain, (nbytes, nops)) in shapes.items():
+        for s in (one, sets[0], sets[-1]):
+            got, want = fn(s), plain(s)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"bloom build {label} {shape}: kernel "
+                                     "differs from its plain version")
+        warm = device_ms(lambda: fn(one), 20)
+        cold = graph_ms([lambda s=s: fn(s) for s in sets])
+        bound = max(nbytes / rates["hbm_bw"], nops / rates["fp32_ops"]) * 1e3
+        out[shape] = (warm, cold, bound)
+        log(f"  bloom build {label} {shape}: warm {warm:.5f} ms, cold "
+            f"{cold:.5f} ms, bound {bound:.6f} ms ({len(sets)} input sets "
+            f"for the cold calls)")
+    del sets
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1412,6 +1534,41 @@ def phase_kernels(dev, variants: dict) -> dict:
            lambda: bf.bloom_probe_rows_plain(bloom, rows_q, q, nbits=NW * 32, h=H),
            None, nbytes=T * (H * 8 + 8 + 4 + 1), nops=T * H * 12)
 
+    # ---- Bloom build and update: a flush's 5 rows, an insert batch ------
+    err, n_checks = bloom_build_edge_sweep(g, dev)
+    log(f"  bloom build edge sweep: {n_checks} kernel calls bit-exact vs "
+        f"plain (build and update; h = 1..6; R = 1..{BUILD_ROWS}; rows of "
+        f"KEY_MAX alone, duplicates, keys 0 and KEY_MAX - 1; nbits 32, 4096, "
+        f"{NW * 32}, {(BUILD_SMEM_WORDS + 1) * 32})")
+    bloom_build_timings(g, dev, "(this build)")
+    for v, lib in variants["bloom build"].items():
+        with kernel_library(lib):
+            e, _ = bloom_build_edge_sweep(g, dev)
+            err = max(err, e)
+            bloom_build_timings(g, dev, f"BB_MAX_SMEM={v}")
+    fk, words, ik = build_inputs(g, dev)[0]
+    build = lambda *a: (bf.bloom_build_cuda(*a),)          # noqa: E731
+    update = lambda *a: (bf.bloom_update_cuda(*a),)        # noqa: E731
+    err = max(err, assert_exact(
+        "bloom_build", build, lambda *a: (bf.bloom_build_plain(*a),),
+        fk, NW * 32, H))
+    err = max(err, assert_exact(
+        "bloom_update", update, lambda *a: (bf.bloom_update_plain(*a),),
+        words, ik, NW * 32, H))
+    nbytes, nops = build_work(BUILD_ROWS, RUN_CAP, False)
+    record("bloom_build", "bloom_filter.cu",
+           "none (XLA runs src/repro/kernels/ref.py bloom_build_ref)", err,
+           lambda: bf.bloom_build_cuda(fk, NW * 32, H),
+           lambda: bf.bloom_build_plain(fk, NW * 32, H),
+           None, nbytes=nbytes, nops=nops)
+    nbytes, nops = build_work(1, INSERT_KEYS, True)
+    record("bloom_update", "bloom_filter.cu",
+           "none (XLA runs src/repro/kernels/ref.py bloom_update_ref)", err,
+           lambda: bf.bloom_update_cuda(words, ik, NW * 32, H),
+           lambda: bf.bloom_update_plain(words, ik, NW * 32, H),
+           None, nbytes=nbytes, nops=nops)
+    del fk, words, ik
+
     nodes, ncnt, lo, hi, cap = range_sets(g, dev, tkeys, tcounts, "1024", 1)[0]
     err = assert_exact("range_scan_rows", rs.range_scan_rows_cuda,
                        rs.range_scan_rows_plain, tkeys, tvals, nodes, ncnt,
@@ -1761,10 +1918,10 @@ def phase_main_path(dev, args):
 EAGER = dict(f=4, sigma=4096, max_nodes=4096, max_results=128,
              keys=1 << 20, key_space=1 << 26, batch=4096, delete_every=8,
              deletes=256, queries=4096, ranges=256, span=1 << 11)
-#: kernels the eager path must launch: the single-pair merge on its write
-#: side, and those of the reads after it
-EAGER_KERNELS = ("merge_sorted", "sorted_search_rows", "bloom_probe_rows",
-                 "range_scan_rows")
+#: kernels the eager path must launch: the single-pair merge and the
+#: filter build on its write side, and those of the reads after it
+EAGER_KERNELS = ("merge_sorted", "bloom_build", "sorted_search_rows",
+                 "bloom_probe_rows", "range_scan_rows")
 
 
 def tree_shape(node):
@@ -4324,6 +4481,29 @@ def phase_tenancy(dev) -> dict:
     return ops.launch_counts()
 
 
+def check_launches(rows: dict, paths: dict) -> None:
+    """Each of phase 1's kernels must have launched on its own path (its
+    row gets those launches), and each path's kernels on that path; a path
+    left out of ``paths`` is not checked."""
+    for name_k, row in rows.items():
+        path = KERNEL_PATH.get(name_k, "nbtree")
+        if path not in paths:
+            continue
+        row["launches"] = paths[path][name_k]
+        row["launches_by_path"] = {p: c[name_k] for p, c in paths.items()
+                                   if c.get(name_k)}
+        if not row["launches"]:
+            raise AssertionError(f"{name_k} never launched on the {path} path")
+    for path, names in (("eager", EAGER_KERNELS),
+                        ("archs", ARCH_KERNELS), ("variants", ARCH_KERNELS),
+                        ("ingest", INGEST_KERNELS),
+                        ("tenancy", TENANCY_KERNELS)):
+        for name_k in names if path in paths else ():
+            if not paths[path][name_k]:
+                raise AssertionError(
+                    f"{name_k} never launched on the {path} path")
+
+
 def build_kernels(tmp: str) -> dict:
     """Build the kernel library and, beside it, the ptxas reports and the
     swept variants (all ``nvcc`` processes started together); print the
@@ -4466,21 +4646,7 @@ def main() -> int:
     paths["tenancy"] = phase_tenancy(dev)
     log(f"launches on the tenancy path: {json.dumps(paths['tenancy'])}; "
         f"phase 7 took {time.perf_counter() - t7:.1f} s")
-    for name_k, row in rows.items():
-        path = KERNEL_PATH.get(name_k, "nbtree")
-        row["launches"] = paths[path][name_k]
-        row["launches_by_path"] = {p: c[name_k] for p, c in paths.items()
-                                   if c.get(name_k)}
-        if not row["launches"]:
-            raise AssertionError(f"{name_k} never launched on the {path} path")
-    for path, names in (("eager", EAGER_KERNELS),
-                        ("archs", ARCH_KERNELS), ("variants", ARCH_KERNELS),
-                        ("ingest", INGEST_KERNELS),
-                        ("tenancy", TENANCY_KERNELS)):
-        for name_k in names:
-            if not paths[path][name_k]:
-                raise AssertionError(
-                    f"{name_k} never launched on the {path} path")
+    check_launches(rows, paths)
     log(f"chip_smoke took {time.perf_counter() - t_start:.1f} s, every phase "
         "passed")
     print(json.dumps({"kernels": list(rows.values())}))

@@ -42,6 +42,7 @@ SIGNATURES = {
     "sorted_search_rows_launch": (P, P, LL, P, P, P, P, P, P, I, P),
     "bloom_probe_launch": (P, P, P, I, I, I, P),
     "bloom_probe_rows_launch": (P, LL, P, P, P, I, I, I, P),
+    "bloom_build_launch": (P, P, P, I, I, I, I, P),
     "range_scan_launch": (P, P, I, P, P, P, P, P, I, I, P),
     "range_scan_rows_launch": (P, P, LL, P, P, P, P, P, P, P, I, I, I, P),
     "paged_attention_launch": (P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, F,

@@ -7,7 +7,9 @@ CUDA wrappers count their launches (``launch_counts``), so a run can show
 that its main path went through the kernels.
 
 Bloom build and update have no Pallas kernel in the JAX package (XLA runs
-them) and are plain PyTorch on both devices.
+them); the port gives them a CUDA kernel of their own all the same
+(``bloom_filter.py``), since their plain chain of ~90 small passes cost the
+write path more host time than any other part of it.
 """
 from __future__ import annotations
 
@@ -16,7 +18,6 @@ from . import merge_sorted as _ms
 from . import paged_attention as _pa
 from . import range_scan as _rs
 from . import sorted_search as _ss
-from .ref import bloom_build_ref, bloom_update_ref
 
 _MODULES = (_ms, _ss, _bf, _rs, _pa)
 
@@ -84,13 +85,15 @@ def paged_attention(q, k_pages, v_pages, block_tables, seq_lens):
 
 
 def bloom_build(keys, nbits: int, h: int = 3):
-    """Filter build over one run or a batch of runs (plain PyTorch)."""
-    return bloom_build_ref(keys, nbits, h)
+    """Filter build over one run ``(N,)`` or a batch of runs ``(R, N)``."""
+    fn = _bf.bloom_build_cuda if _on_card(keys) else _bf.bloom_build_plain
+    return fn(keys, nbits, h)
 
 
 def bloom_update(words, keys, nbits: int, h: int = 3):
     """OR a batch's bits into ``words``: O(batch), bit-identical to a rebuild."""
-    return bloom_update_ref(words, keys, nbits, h)
+    fn = _bf.bloom_update_cuda if _on_card(words) else _bf.bloom_update_plain
+    return fn(words, keys, nbits, h)
 
 
 def launch_counts() -> dict:

@@ -2,8 +2,9 @@
 
 Each function defines the semantics its CUDA kernel must reproduce bit for
 bit; the CPU tests hold these against the JAX package's oracles and Pallas
-kernels on shared numpy inputs, and ``chip_smoke.py`` holds every kernel
-against them on the card.
+kernels on shared numpy inputs, and ``chip_smoke.py`` (the Bloom build's
+kernel: ``tests/test_torch_bloom_card.py``) holds every kernel against them
+on the card.
 
 Key representation: the device tier's keys and Bloom words are uint32.
 PyTorch's ``uint32`` lacks ``searchsorted``, shifts, comparisons, ``%``

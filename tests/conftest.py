@@ -15,3 +15,8 @@ import pytest
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "card: needs an NVIDIA card; skips where there is none")

@@ -5,7 +5,8 @@ The same numpy inputs (made from a seed) go through ``repro.kernels.ops``
 (the Pallas kernels, in interpret mode on the CPU) or ``repro.kernels.ref``
 and through ``repro_torch.kernels.ops`` on CPU tensors, which takes each
 kernel's plain PyTorch version.  The CUDA kernels themselves are held
-against these plain versions on the card by ``chip_smoke.py``.
+against these plain versions on the card by ``chip_smoke.py`` and, the
+Bloom build and update, by ``tests/test_torch_bloom_card.py``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +18,7 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import _build
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.bloom_filter import bloom_build_cuda, bloom_update_cuda
 from repro_torch.kernels.merge_sorted import merge_sorted_cuda
 from repro_torch.kernels.paged_attention import (check_alignment,
                                                  paged_attention_cuda)
@@ -613,6 +615,52 @@ def test_cuda_wrapper_rejects_cpu_tensors():
         merge_sorted_cuda(a, _v([0, 0, 0]), a, _v([0, 0, 0]))
     with pytest.raises(ValueError, match="device"):
         tops.merge_sorted(a.to("meta"), _v([0, 0, 0]), a, _v([0, 0, 0]))
+    words = torch.zeros(128, dtype=torch.int64)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        bloom_build_cuda(a, 4096, 3)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        bloom_update_cuda(words, a, 4096, 3)
+    for call in (lambda: tops.bloom_build(a.to("meta"), 4096, 3),
+                 lambda: tops.bloom_update(words.to("meta"), a, 4096, 3)):
+        with pytest.raises(ValueError, match="device"):
+            call()
+
+
+_KEYS = torch.arange(8, dtype=torch.int64)
+#: (label, keys, words (None: the build), nbits, h, error)
+_BLOOM_REFUSALS = [
+    ("keys-int32", _KEYS.int(), 128, 4096, 3, TypeError),
+    ("rank-3", _KEYS.view(2, 2, 2), 128, 4096, 3, ValueError),
+    ("rank-0", _KEYS[0], 128, 4096, 3, ValueError),
+    ("nbits-4100", _KEYS, 128, 4100, 3, ValueError),      # nbits % 32 != 0
+    ("nbits-0", _KEYS, 128, 0, 3, ValueError),
+    ("h-0", _KEYS, 128, 4096, 0, ValueError),
+    ("h-7", _KEYS, 128, 4096, 7, ValueError),
+]
+_BLOOM_REFUSALS = (
+    [("build-" + c[0], c[1], None, *c[3:]) for c in _BLOOM_REFUSALS]
+    + [("update-" + c[0], *c[1:]) for c in _BLOOM_REFUSALS]
+    + [("update-words-int32", _KEYS, "int32", 4096, 3, TypeError),
+       ("update-words-127", _KEYS, 127, 4096, 3, ValueError),
+       ("update-words-rank-2", _KEYS, (1, 128), 4096, 3, ValueError)])
+
+
+@pytest.mark.parametrize("keys,words,nbits,h,error",
+                         [c[1:] for c in _BLOOM_REFUSALS],
+                         ids=[c[0] for c in _BLOOM_REFUSALS])
+def test_bloom_build_wrappers_refuse_bad_inputs(keys, words, nbits, h, error):
+    """The build and update kernels' wrappers refuse, before any launch and
+    so without a card, what the kernel does not take: a wrong dtype or rank,
+    nbits not a multiple of 32 (or none), h outside 1..6, words that do not
+    fit the keys."""
+    if words is None:
+        call = lambda: bloom_build_cuda(keys, nbits, h)  # noqa: E731
+    else:
+        w = (torch.zeros(128, dtype=torch.int32) if words == "int32"
+             else torch.zeros(words, dtype=torch.int64))
+        call = lambda: bloom_update_cuda(w, keys, nbits, h)  # noqa: E731
+    with pytest.raises(error):
+        call()
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
